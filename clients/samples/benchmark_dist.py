@@ -61,4 +61,4 @@ dt = max(((t2 - t1) - (t1 - t0)) / reps, 1e-12)
 vs = np.dtype(str(Ag.int_data.dtype)).itemsize
 gbs = (vs + 4) * A.nnz / dt / 1e9
 print(f"dist spmv+psum-norm over {nparts} parts (mode={Ag.mode}): "
-      f"{dt*1e6:.1f} us/op  {gbs:.2f} GB/s aggregate")
+      f"{dt*1e6:.1f} us/apply  {gbs:.2f} GB/s aggregate")

@@ -30,7 +30,7 @@ offs = _offsets(nparts, N)
 # each "rank" builds only its own rows — the global matrix never exists
 blocks = [laplacian_2d_block(n, int(offs[q]), int(offs[q + 1]))
           for q in range(nparts)]
-dl = distributed_amg_setup(blocks, (N, N), coarse_size=200, wjd=False)
+dl = distributed_amg_setup(blocks, (N, N), coarse_size=200)
 print(f"dist hierarchy: levels={len(dl.As)} "
       f"sizes={[a.n_global for a in dl.As]} mode={dl.As[0].mode}")
 b = np.zeros(N)

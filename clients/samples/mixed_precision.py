@@ -1,6 +1,6 @@
 """Mixed-precision defect correction sample (reference:
 clients/samples/mixed-precision.cpp): f64 outer DC around an f32 inner CG —
-the strategic pattern on TPU where f64 is software-emulated."""
+the inner solve streams 8 bytes per nonzero instead of 12."""
 
 import os
 import sys

@@ -7,8 +7,10 @@ PROCESS builds its row block with a per-rank generator, exchanges only
 boundary metadata (parallel/multiproc.py), and the solve is one SPMD jit
 program across all processes.
 
-Launch one instance per process (CPU/gloo shown; on TPU pods drop the
-platform override):
+Launch one instance per process (CPU/gloo shown). On GPUs, drop the
+platform override and start each process with its own
+``CUDA_VISIBLE_DEVICES`` — a JAX process reserves most of the memory of
+every card it sees, so two processes must not share one:
 
     python clients/samples/multiprocess_cg.py localhost:9876 0 2 &
     python clients/samples/multiprocess_cg.py localhost:9876 1 2

@@ -9,11 +9,8 @@ V-cycle over the mesh. Reference flow: cg-amg_mpi with distribute_matrix
 (clients/samples/cg-amg_mpi.cpp + global AMG build,
 global_matrix.cpp:4041-4311).
 
-Captured 8-part run (BASELINE.md "256³ scale row"): setup 412 s,
-5 levels 16.8M→2.1M→135k→5.5k→304, CG+distAMG 11 iterations,
-rms err 1.75e-6. PARTS=1 on a single chip stops at the scoped-VMEM
-limit (~4M rows/chip: the kernel keeps each shard's x VMEM-resident) —
-the row partition across chips is the point of this sample.
+The row partition across cards is the point of this sample;
+`chip_smoke.py --four` runs the same route on four GPUs.
 
 Env knobs:
   POISSON_N   edge size (default 256 -> 16.78M unknowns)

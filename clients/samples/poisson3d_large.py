@@ -3,24 +3,15 @@
 The BASELINE north-star scale demo (3D Poisson up to 256^3): builds the
 smoothed-aggregation hierarchy on the host (SpGEMM Galerkin — documented
 setup-phase placement, ops/spgemm.py), converts it to an f32 device
-hierarchy (DIA for banded levels, WJD fast applies for scattered ones),
-and runs the whole preconditioned-CG solve as ONE XLA program via
-`hoisted_jit` (operator arrays ride as device-buffer arguments, never HLO
-constants).
+hierarchy (DIA for banded levels, CSR for the others), and runs the whole
+preconditioned-CG solve as ONE XLA program via `hoisted_jit` (operator
+arrays ride as device-buffer arguments, never HLO constants).
 
 POISSON_N=128 python clients/samples/poisson3d_large.py   # 2.1M unknowns
-Measured (TPU v5e, single chip, N=128, round 4): 4 levels
-2.1M->263k->15.9k->680, 11 CG iterations, 644 ms solve (58.5 ms/V-cycle
-iteration — was ~330 in round 3, before transfers were WJD-served),
-10.2 s host setup (was ~40 s), rms error 1e-6.
 
-N=256 (16.7M unknowns, single chip, captured): 5 levels
-16.7M->2.03M->119k->4.7k->165, 14 CG iterations, 9.2 s solve, 115 s
-setup, rms err 1.7e-6 — the fine level and P ride the windowed HBM-x
-WJD kernels; transfer operators whose windows exceed the scoped-VMEM
-budget fall back to XLA (the fit gate decides per operator). The
-distributed route (`poisson3d_dist.py`) remains the scaling answer
-across chips (8-part run: 11 iterations, rms 1.75e-6).
+`chip_smoke.py` runs this deployment (f64, rel_tol 1e-10) on the card.
+The distributed route (`poisson3d_dist.py`) is the scaling answer across
+cards.
 """
 
 import os

@@ -373,10 +373,10 @@ int rt_mtx_body(const char* path, int64_t header_offset, int64_t nnz,
 // Reference parity: the device csrgemm / rsamg setup kernels
 // (src/base/hip/hip_matrix_csr.cpp MatMatMult, hip_rsamg_csr.cpp) — the
 // reference builds AMG levels entirely with accelerator kernels. Here the
-// setup is host graph work (SURVEY §7: TPU/XLA cannot run dynamic-shape
+// setup is host graph work (SURVEY §7: XLA cannot run dynamic-shape
 // symbolic passes), so the analog is an optimized native layer: Gustavson
-// row-merge with stamped accumulators, two worker threads (this host has
-// two cores), growable per-thread output buffers stitched once.
+// row-merge with stamped accumulators, two worker threads, growable
+// per-thread output buffers stitched once.
 // ---------------------------------------------------------------------------
 
 #include <thread>
@@ -425,8 +425,8 @@ static void spgemm_rows(int64_t r0, int64_t r1, int64_t m,
 
 // Gustavson with an OPEN-ADDRESSING hash accumulator: for very wide
 // outputs a dense stamp/value array (e.g. 268 MB at 16.7M columns) makes
-// every accumulate a DRAM miss — measured 30.6 s for the 16.7M-row
-// Galerkin triple product, almost entirely accumulator misses. A few-KB
+// every accumulate a DRAM miss (the 16.7M-row Galerkin triple product is
+// then dominated by accumulator misses). A few-KB
 // per-row hash stays L1/L2-resident; rows here have O(100) distinct
 // columns (Galerkin products of bounded-degree operators).
 static void spgemm_rows_hash(int64_t r0, int64_t r1, int64_t m,

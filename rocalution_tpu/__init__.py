@@ -1,6 +1,6 @@
-"""rocalution_tpu — a TPU-native sparse linear-algebra and iterative-solver
-framework with the capability surface of ROCm/rocALUTION, rebuilt from scratch
-on JAX/XLA/Pallas.
+"""rocalution_tpu — a sparse linear-algebra and iterative-solver framework
+with the capability surface of ROCm/rocALUTION, rebuilt from scratch on
+JAX/XLA; its accelerator is an NVIDIA GPU (H100).
 
 Architecture (vs. reference, see SURVEY.md):
 * formats/  — matrix format pytrees (CSR/COO/ELL/DIA/HYB/BCSR/MCSR/DENSE)
@@ -16,7 +16,7 @@ from . import backend
 from .backend import info, init, stop, sync
 from .config import (get_config, set_debug, set_default_dtype, set_verbose)
 from . import io, ops, precond, solvers, utils
-from .formats import (BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR, WJD,
+from .formats import (BCSR, COO, CSR, DENSE, DIA, ELL, HYB, MCSR,
                       Stencil, convert, laplace2d_stencil, laplace3d_stencil,
                       to_csr)
 from .ops import blas1

@@ -1,8 +1,8 @@
 """Backend / platform management.
 
-TPU-native replacement for the reference runtime layer
+Replacement for the reference runtime layer
 (reference: src/base/backend_manager.cpp:110 `init_rocalution`,
-:213 `stop_rocalution`, :287 `info_rocalution`). On TPU there are no
+:213 `stop_rocalution`, :287 `info_rocalution`). Under JAX there are no
 handles or streams to create: JAX owns the runtime. What remains useful:
 
 * `init(...)`   — optional `jax.distributed.initialize` for multi-host runs
@@ -10,11 +10,13 @@ handles or streams to create: JAX owns the runtime. What remains useful:
 * `info()`      — platform dump,
 * `stop()`      — no-op kept for API parity,
 * `sync()`      — block until all pending work is done (used by benchmarks,
-                  analog of `_rocalution_sync()`).
+                  analog of `_rocalution_sync()`),
+* `use_compile_cache()` — JAX's persistent compilation cache for scripts.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import jax
@@ -51,10 +53,25 @@ def stop() -> None:
 def sync() -> None:
     """Block until all in-flight device work completes (analog _rocalution_sync)."""
     for d in jax.local_devices():
-        try:
-            jax.device_put(0, d).block_until_ready()
-        except Exception:  # pragma: no cover - defensive
-            pass
+        jax.device_put(0, d).block_until_ready()
+
+
+# a fixed path inside the checkout, so every script run from it shares
+# what earlier runs compiled
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def use_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and nothing
+    is set here; otherwise the cache goes to ``<repo>/.jax_cache``."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", REPO_CACHE_DIR)
+    return REPO_CACHE_DIR
 
 
 def info() -> str:

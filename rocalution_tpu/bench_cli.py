@@ -37,7 +37,7 @@ PRECONDS = ["none", "jacobi", "gs", "sgs", "sor", "ssor", "ilu", "ilut",
             "itilu0", "ic", "mcgs", "mcsgs", "mcilu", "fsai", "spai", "tns",
             "aichebyshev", "blockjacobi", "as", "ras", "me",
             "saamg", "uaamg", "rsamg", "pairwise_amg"]
-FORMATS = ["CSR", "COO", "ELL", "DIA", "HYB", "BCSR", "MCSR", "DENSE", "WJD"]
+FORMATS = ["CSR", "COO", "ELL", "DIA", "HYB", "BCSR", "MCSR", "DENSE"]
 MATRICES = ["laplacian2d", "laplacian3d", "permuted_identity", "file"]
 
 
@@ -139,11 +139,11 @@ def main(argv=None):
 
 
 def run_case(args):
-    import jax
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
     import rocalution_tpu as rt
+
+    rt.backend.use_compile_cache()
     from rocalution_tpu.solvers.multigrid import mg_solve, amg_hierarchy
 
     t0 = time.perf_counter()
@@ -182,19 +182,8 @@ def run_case(args):
     x = np.asarray(x)   # force completion
     t_solve = time.perf_counter() - t0
 
-    # which SpMV engine actually served the operator (reference: the bench
-    # records the format; here the same format may run the Pallas WJD
-    # kernel or the XLA composition path)
-    from rocalution_tpu.formats import WJD as _WJD
-
-    if isinstance(A, _WJD) or getattr(A, "_wjd_cache", None) is not None:
-        engine = "pallas-wjd"
-    else:
-        engine = "xla"
-
     res = {
         "solver": args.solver, "precond": args.precond, "format": args.fmt,
-        "engine": engine,
         "matrix": f"{args.matrix}({args.size})",
         "n": A_csr.shape[0], "nnz": A_csr.nnz,
         "convergence": int(info.status) in (1, 2),

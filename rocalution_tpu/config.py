@@ -1,6 +1,6 @@
 """Global configuration for rocalution_tpu.
 
-TPU-native analog of the reference backend descriptor
+Analog of the reference backend descriptor
 (reference: src/base/backend_manager.hpp:52-111): instead of a mutable
 singleton holding HIP handles/streams, we keep a small typed config of
 dtype policy + verbosity. Device placement is handled by JAX shardings,
@@ -17,8 +17,7 @@ import jax
 import numpy as np
 
 # rocALUTION defaults to double precision everywhere; we keep that default
-# (f64 is software-emulated on TPU) but make it a policy so solvers can run
-# f32/bf16 and mixed-precision defect correction can bridge the gap
+# but make it a policy so solvers can run f32/bf16 and mixed-precision defect correction can bridge the gap
 # (reference: src/solvers/mixed_precision.cpp).
 _ENABLE_X64 = os.environ.get("ROCALUTION_TPU_X64", "1") != "0"
 if _ENABLE_X64:
@@ -41,16 +40,6 @@ class Config:
     debug: bool = os.environ.get("ROCALUTION_TPU_DEBUG", "0") == "1"
     # Log file path for log_debug-style call tracing (reference: src/utils/log.hpp).
     log_file: Optional[str] = os.environ.get("ROCALUTION_TPU_LOG") or None
-    # Auto-attach the WJD fast-apply representation when a CSR operand
-    # reaches a solver (the analog of rocSPARSE csrmv analysis running
-    # inside Build, hip_matrix_csr.cpp csrmv_analysis). None = decide by
-    # backend (on for TPU, off for CPU where the XLA path is the fast one).
-    auto_wjd: Optional[bool] = dataclasses.field(
-        default_factory=lambda: (
-            None if os.environ.get("ROCALUTION_TPU_AUTO_WJD") is None
-            else os.environ["ROCALUTION_TPU_AUTO_WJD"] != "0"
-        )
-    )
 
 
 _config = Config()
@@ -79,7 +68,3 @@ def set_default_dtype(dtype) -> None:
 def index_dtype() -> np.dtype:
     return _config.index_dtype
 
-
-def set_auto_wjd(flag: Optional[bool]) -> None:
-    """Force WJD auto-attach on/off (None = backend default)."""
-    _config.auto_wjd = flag

@@ -11,11 +11,10 @@ from .dia import DIA
 from .ell import ELL
 from .hyb import HYB
 from .mcsr import MCSR
-from .wjd import WJD
 from .stencil import Stencil, laplace2d_stencil, laplace3d_stencil
 
 __all__ = [
     "MatrixBase", "CSR", "COO", "ELL", "DIA", "HYB", "BCSR", "MCSR", "DENSE",
-    "Stencil", "WJD", "convert", "laplace2d_stencil", "laplace3d_stencil", "to_csr",
+    "Stencil", "convert", "laplace2d_stencil", "laplace3d_stencil", "to_csr",
     "FORMATS",
 ]

@@ -1,7 +1,7 @@
 """BCSR storage format (reference: MatrixBCSR, matrix_formats.hpp:83-104).
 
-TPU note: dense blocks are the MXU's food. SpMV batches all block×vector
-products into one `dot_general`; block dims ≥8 start hitting the MXU tiles.
+SpMV batches all block×vector products into one `dot_general` over the
+dense blocks (at `Precision.HIGHEST`, see ops/spmv.py).
 """
 
 from __future__ import annotations

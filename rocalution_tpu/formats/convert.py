@@ -18,7 +18,6 @@ from .dia import DIA
 from .ell import ELL
 from .hyb import HYB
 from .mcsr import MCSR
-from .wjd import WJD, from_csr as _wjd_from_csr
 
 FORMATS = {
     "CSR": CSR,
@@ -29,7 +28,6 @@ FORMATS = {
     "BCSR": BCSR,
     "MCSR": MCSR,
     "DENSE": DENSE,
-    "WJD": WJD,
 }
 
 
@@ -109,61 +107,18 @@ def to_csr(mat) -> CSR:
         )
     if isinstance(mat, DENSE):
         return CSR.from_dense(get_host(mat, "data"))
-    from .wjd import ComplexWJD
-
-    if isinstance(mat, ComplexWJD):
-        re = to_csr(mat.re)
-        im = to_csr(mat.im)
-        rr, rc, rv = re.numpy_rows(), get_host(re, "indices"), get_host(re, "data")
-        ir, icx, iv = im.numpy_rows(), get_host(im, "indices"), get_host(im, "data")
-        return CSR.from_coo(
-            np.concatenate([rr, ir]), np.concatenate([rc, icx]),
-            np.concatenate([rv.astype(np.dtype(mat.value_dtype)),
-                            1j * iv.astype(np.dtype(mat.value_dtype))]),
-            mat.re.shape,
-        )
-    if isinstance(mat, WJD):
-        # reconstruct COO from slot vregs (explicit zeros are dropped, like
-        # every padded-format round trip: ELL/DIA do the same)
-        val = get_host(mat, "data")
-        if mat.data_lo is not None:   # float-float: v = hi + lo exactly
-            val = val.astype(np.float64) + get_host(mat, "data_lo")
-        if getattr(mat, "uloc", None) is None:           # roll mode
-            du = np.maximum(np.asarray(get_host(mat, "diag_u")), 0)
-            u = np.broadcast_to(
-                du[:, :, None, None].astype(np.int64),
-                du.shape + (8, 128))
-        else:
-            u = get_host(mat, "uloc").astype(np.int64)
-        brow = get_host(mat, "brow").astype(np.int64)
-        Tp, K = brow.shape
-        tt, kk, ss, ll = np.nonzero(val)
-        rows = tt * 1024 + ss * 128 + ll
-        cols = (brow[tt, kk] * 128 - mat.pad_lo) + ss * 128 + ll + u[tt, kk, ss, ll]
-        vals = val[tt, kk, ss, ll]
-        sr = get_host(mat, "spill_row")
-        sc = get_host(mat, "spill_col")
-        sv = get_host(mat, "spill_val")
-        return CSR.from_coo(
-            np.concatenate([rows, sr]), np.concatenate([cols, sc]),
-            np.concatenate([vals, sv]), mat.shape,
-        )
     raise TypeError(f"cannot convert {type(mat).__name__} to CSR")
 
 
-def cast_values(mat, dtype, device: bool = True):
+def cast_values(mat, dtype):
     """Cast a format's value arrays to `dtype`, host-side when caches exist
-    (setup-phase: each eager device cast costs a remote compile on this
-    platform). ``device=False`` keeps the result host-resident (see
-    CSR.from_arrays) — for hierarchy levels that will be served through an
-    attached WJD fast-apply rather than their own CSR arrays."""
+    (setup-phase: the host caches stay in step with the device arrays)."""
     import jax
     import jax.numpy as jnp
 
     if isinstance(mat, CSR) and getattr(mat, "_host_cache", None):
         d, i, p = mat.numpy_triplet()
-        return CSR.from_arrays(d.astype(dtype), i, p, mat.shape,
-                               device=device)
+        return CSR.from_arrays(d.astype(dtype), i, p, mat.shape)
     if isinstance(mat, DIA):
         from .base import set_host_cache
 
@@ -201,8 +156,6 @@ def convert(mat, fmt: str, **kwargs):
         return BCSR.from_csr_host(csr, kwargs.get("block_dim", 4))
     if fmt == "MCSR":
         return MCSR.from_csr_host(csr)
-    if fmt == "WJD":
-        return _wjd_from_csr(csr, **kwargs)
     if fmt == "DENSE":
         return DENSE.from_csr_host(csr)
     raise AssertionError

@@ -1,8 +1,8 @@
 """CSR storage format.
 
 Reference parity: `MatrixCSR` struct (src/base/matrix_formats.hpp:51-66) and
-`HostMatrixCSR` / `HIPAcceleratorMatrixCSR` op surface. TPU-native twist: we
-additionally carry `row_ids` (the COO-expanded row index of every nonzero) so
+`HostMatrixCSR` / `HIPAcceleratorMatrixCSR` op surface. One addition: we
+carry `row_ids` (the COO-expanded row index of every nonzero) so
 SpMV lowers to a vectorized multiply + `segment_sum` — the natural XLA
 formulation — without per-call recomputation, and CSR ops never loop over rows
 in Python.
@@ -37,10 +37,9 @@ class CSR(MatrixBase):
     def from_arrays(data, indices, indptr, shape, device: bool = True) -> "CSR":
         """Build from classic CSR triplet; computes row_ids once (host or
         traced). ``device=False`` keeps the leaves as HOST numpy arrays —
-        for setup-phase intermediates (AMG level operators before
-        convert_hierarchy) whose device upload would be pure waste on a
-        slow-transfer platform; jit closures embed either kind the same
-        way, and any eager op auto-converts."""
+        for setup-phase intermediates (AMG coarsening products, factors
+        that only the host analysis reads); `formats.base.on_device`
+        uploads the ones a solver keeps."""
         nnz = int(np.asarray(data.shape)[0]) if hasattr(data, "shape") else len(data)
         nrow = int(shape[0])
         host_side = isinstance(indptr, np.ndarray) or not hasattr(indptr, "aval")
@@ -74,8 +73,8 @@ class CSR(MatrixBase):
         if host_side:
             # cache arrays in their NATIVE dtypes (no astype copies):
             # every consumer either astypes on access (numpy_triplet,
-            # numpy_rows) or is dtype-agnostic; the eager int64 copies
-            # cost ~2.5 s per AMG level at 2.1M unknowns (profiled).
+            # numpy_rows) or is dtype-agnostic; eager int64 copies would
+            # cost seconds per AMG level at millions of unknowns.
             set_host_cache(
                 out,
                 data=np.asarray(data),
@@ -131,7 +130,7 @@ class CSR(MatrixBase):
 
     def numpy_triplet(self):
         """Host CSR triplet; uses the host cache (no device read if built on
-        host — see base.set_host_cache for why that matters on this platform)."""
+        host — see base.set_host_cache)."""
         return (
             get_host(self, "data"),
             get_host(self, "indices").astype(np.int64),

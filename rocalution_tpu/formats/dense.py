@@ -1,7 +1,7 @@
 """DENSE format (reference: MatrixDENSE, matrix_formats.hpp:149-156).
 
-Used by direct solvers (LU/QR/Inversion) and coarse-grid AMG solves; on TPU a
-dense matrix is where the MXU shines, so no special storage tricks needed.
+Used by direct solvers (LU/QR/Inversion) and coarse-grid AMG solves; a plain
+row-major array, no special storage tricks.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """DIA storage format (reference: MatrixDIA struct, matrix_formats.hpp:121-130).
 
-TPU note: DIA is the *fastest* format on TPU for banded/stencil matrices —
-SpMV is gather-free (static shifted multiplies that XLA fuses into a few VPU
-passes). Offsets are static metadata so the diagonal loop fully unrolls at
+DIA suits banded/stencil matrices: SpMV is gather-free (static shifted
+multiplies that XLA fuses into one elementwise pass). Offsets are static
+metadata so the diagonal loop fully unrolls at
 trace time.
 """
 
@@ -51,9 +51,8 @@ class DIA(MatrixBase):
         rows = np.repeat(np.arange(nrow, dtype=np.int64), counts)
         offs = indices - rows
         uniq = np.unique(offs)
-        off_pos = {int(o): k for k, o in enumerate(uniq)}
         dia = np.zeros((len(uniq), nrow), dtype=data.dtype)
-        d_idx = np.array([off_pos[int(o)] for o in offs], dtype=np.int64)
+        d_idx = np.searchsorted(uniq, offs)
         dia[d_idx, rows] = data
         out = DIA(
             data=jnp.asarray(dia),

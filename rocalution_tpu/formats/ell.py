@@ -1,8 +1,7 @@
 """ELL storage format (reference: MatrixELL struct, matrix_formats.hpp:107-118).
 
-TPU note: ELL's fixed row width makes SpMV a dense (nrow, width) multiply +
-row reduction with a single gather of x — the friendliest irregular-sparse
-layout for the VPU. Padding entries store column = -1 and value = 0.
+ELL's fixed row width makes SpMV a dense (nrow, width) multiply + row
+reduction with a single gather of x. Padding entries store column = -1 and value = 0.
 """
 
 from __future__ import annotations

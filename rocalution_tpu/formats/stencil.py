@@ -4,9 +4,9 @@ Reference parity: LocalStencil (src/base/local_stencil.hpp:59+, stencil enum
 src/base/stencil_types.hpp:36-39 — Laplace2D is the only type the reference
 ships; host kernel src/base/host/host_stencil_laplace2d.cpp).
 
-TPU-native twist: a stencil is the BEST possible operator class on TPU —
-the apply is pure shifted adds on a reshaped grid (no indices at all, less
-traffic than even DIA), and XLA fuses it into one VPU pass. We generalize to
+A stencil is the cheapest operator class to apply: pure shifted adds on a
+reshaped grid (no indices at all, less traffic than even DIA), which XLA
+fuses into one elementwise pass. We generalize to
 arbitrary small stencils (the reference hard-codes the 5-point Laplacian)
 and both 2-D and 3-D grids.
 """

@@ -5,7 +5,7 @@ Reference parity: the rocsparseio versioned binary container
 WriteFileCSR/ReadFileCSR on LocalMatrix, vector binary IO on LocalVector)
 and the multi-rank file layout of docs/api-reference/multinode.rst:126-155.
 
-TPU-native implementation: a small self-describing npz-based container
+Implementation: a small self-describing npz-based container
 (magic + version + format tag + index/value arrays) — same capability
 (versioned, typed, per-rank shardable), numpy-native speed.
 """

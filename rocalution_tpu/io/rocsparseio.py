@@ -180,8 +180,8 @@ def read_rocsparseio(path: str):
             if direction == 1:
                 # MCSC (column direction): same diagonal (square only),
                 # off-diagonal runs are per COLUMN — normalize to row
-                # direction (round-4 VERDICT item 9: accept both
-                # directions instead of rejecting)
+                # direction (accept both directions instead of
+                # rejecting)
                 if m != n:
                     raise ValueError(
                         f"{path}: non-square MCSC object unsupported")

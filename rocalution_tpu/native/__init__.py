@@ -2,7 +2,7 @@
 
 Reference parity: rocALUTION's host backend is C++ (src/base/host/*); the
 sequential factorization sweeps and file parsing live there. Here the same
-split holds: JAX/XLA/Pallas own the device compute path, and this module is
+split holds: JAX/XLA own the device compute path, and this module is
 the native runtime layer for the sequential host work — compiled once from
 csrc/rocalution_tpu_native.cpp with g++ and bound via ctypes (no pybind11
 in this environment).

@@ -1,9 +1,9 @@
 """Level-1 vector operations.
 
 Reference parity: the LocalVector op surface (src/base/local_vector.hpp:68-670)
-and its host/HIP kernels (host_vector.cpp, hip_vector.cpp via rocBLAS). On TPU
-these are single jnp expressions — XLA fuses chains of them into one VPU pass,
-which is the idiomatic replacement for rocBLAS calls. Complex-aware like the
+and its host/HIP kernels (host_vector.cpp, hip_vector.cpp via rocBLAS). Here
+these are single jnp expressions — XLA fuses chains of them into one
+elementwise pass, which is the idiomatic replacement for rocBLAS calls. Complex-aware like the
 reference (src/utils/math_functions.*).
 """
 

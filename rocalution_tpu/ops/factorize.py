@@ -5,7 +5,7 @@ ILUpFactorize(p) / ILUTFactorize(t, maxrow) (src/base/local_matrix.hpp
 factorization drivers; host kernels in host_matrix_csr.cpp and
 host_ilut_driver_csr.cpp — ILUT/ILUp are host-only in the reference too).
 
-TPU-native placement: factorization is sequential setup work — it runs once
+Placement: factorization is sequential setup work — it runs once
 per matrix on the host (numpy), while the *apply* path (triangular solves)
 runs on-device via LevelSchedule scans or iterative sweeps (ops/trisolve).
 Returned factors are CSR pytrees ready for device residency.
@@ -86,7 +86,7 @@ def _use_native(data) -> bool:
 
     # f32 inputs upcast to f64 for the native sweep and cast back — the
     # sweep is sequential host work where the f64 copy is noise, while
-    # the numpy fallback costs seconds at 65k (BENCH r5: 3.5 s analyze)
+    # the numpy fallback costs seconds at 65k rows
     return data.dtype in (np.float32, np.float64) and native.available()
 
 
@@ -308,8 +308,8 @@ def ilut(A: CSR, tol: float = 1e-3, max_fill: int = 32) -> Tuple[CSR, CSR]:
 # scalar ILU of the flattened matrix. Setup is a host sweep (like every
 # factorization driver here); applies ride the scalar LevelSchedule
 # machinery on flattened factors after a block-diagonal transform (see
-# precond/ilu.bsr_ilu0) so each (bd, bd) triangular solve becomes batched
-# MXU-friendly work.
+# precond/ilu.bsr_ilu0) so each (bd, bd) triangular solve becomes one
+# batched dense product.
 # --------------------------------------------------------------------------
 
 def _bcsr_host(A):

@@ -4,7 +4,7 @@ Reference parity: LocalMatrix ordering ops (src/base/local_matrix.hpp:
 434-480) — MultiColoring, MaximalIndependentSet, CMK/RCMK,
 ConnectivityOrder, ZeroBlockPermutation — plus Permute/PermuteBackward.
 
-TPU-native placement: orderings are *setup-phase* graph algorithms computed
+Placement: orderings are *setup-phase* graph algorithms computed
 once per matrix on the host (the reference likewise runs CMK/RCMK/MIS
 host-side only — they are absent from hip_matrix_csr.hpp), producing
 permutations and color/level partitions that the device solve phase consumes

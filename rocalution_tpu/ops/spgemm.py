@@ -4,7 +4,7 @@ Reference parity: LocalMatrix::MatMatMult (SpGEMM, Symbolic+Numeric),
 MatrixAdd (SpGEAM), TripleMatrixProduct (Galerkin R·A·P), Transpose
 (src/base/local_matrix.hpp; HIP via rocsparse csrgemm/csrgeam).
 
-TPU-native placement: SpGEMM output sparsity is data-dependent, which is
+Placement: SpGEMM output sparsity is data-dependent, which is
 fundamentally at odds with XLA's static shapes (SURVEY.md §7 "hard parts"),
 and in the solver library SpGEMM appears only in *setup* (AMG Galerkin
 products, power patterns, Schur complements). So the symbolic+numeric passes

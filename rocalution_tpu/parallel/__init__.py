@@ -1,7 +1,7 @@
 """Distributed (multi-chip / multi-host) operation over a jax Mesh.
 
 Replaces the reference's GlobalMatrix/GlobalVector/ParallelManager/MPI stack
-(SURVEY.md §2.7) with row-partitioned shards + ICI collectives under
+(SURVEY.md §2.7) with row-partitioned shards + XLA collectives under
 `shard_map`.
 """
 

@@ -5,7 +5,7 @@ distributed hierarchies with per-level halo exchange (global_matrix.cpp
 boundary-row machinery + base_amg.cpp Global template instantiations,
 base_amg.cpp:449-456).
 
-TPU-native design: the hierarchy is *built* once on the host from the global
+Design: the hierarchy is *built* once on the host from the global
 matrix (setup phase — the reference's BuildHierarchy is likewise a setup
 sweep), then every level's operator and transfer (P/R are rectangular: rows
 on the fine partition, columns on the coarse partition) is row-partitioned
@@ -32,7 +32,8 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..solvers.iter_ctrl import SolverInfo
 from ..solvers.multigrid import Hierarchy, amg_hierarchy
 from .ops import shard_operator, shard_spmv
-from .partition import GlobalCSR, distribute_csr, distribute_vector, gather_vector
+from .partition import (GlobalCSR, distribute_csr, distribute_vector,
+                        gather_vector, shard_stacked)
 from .solve import AXIS, _info_struct, make_mesh
 
 
@@ -52,7 +53,7 @@ def _stacked_inv_diag(A, nparts: int, nl: int) -> jnp.ndarray:
     np.add.at(diag, rows[i == rows], d[i == rows])
     dpad = np.ones(nparts * nl, d.dtype)
     dpad[: len(diag)] = np.where(diag != 0, diag, 1.0)
-    return jnp.asarray((1.0 / dpad).reshape(nparts, nl))
+    return shard_stacked((1.0 / dpad).reshape(nparts, nl))
 
 
 def distribute_hierarchy(h: Hierarchy, nparts: int) -> DistMG:
@@ -147,7 +148,8 @@ def dist_amg_solve(solver: Callable, A, b, nparts: int, *,
     Ag = dh.As[0]
     if mesh is None:
         mesh = make_mesh(nparts)
-    bp = distribute_vector(np.asarray(b), nparts, Ag.n_local)
+    dh, bp = shard_stacked(
+        (dh, distribute_vector(np.asarray(b), nparts, Ag.n_local)), mesh)
 
     def shard_fn(dh, b_l):
         op = shard_operator(dh.As[0], AXIS)
@@ -167,8 +169,8 @@ def dist_amg_solve(solver: Callable, A, b, nparts: int, *,
         P(AXIS),
     )
     out_specs = (P(AXIS), jax.tree.map(lambda _: P(AXIS), _info_struct()))
-    fn = jax.shard_map(shard_fn, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_vma=False)
+    fn = jax.jit(jax.shard_map(shard_fn, mesh=mesh, in_specs=in_specs,
+                               out_specs=out_specs, check_vma=False))
     xp, info_stacked = fn(dh, bp)
     info = jax.tree.map(lambda v: v[0], info_stacked)
     return gather_vector(xp, Ag.n_global), info

@@ -7,7 +7,7 @@ rows of P for the Galerkin product, and transposed P entries for R
 (boundary-row CSR exchange, global_matrix.cpp:1444-1495, 4041-4311), then
 derives the coarse-level ParallelManager (parallel_manager.hpp:204-212).
 
-TPU-native design: the setup is a host-side sweep over PER-PART row blocks
+Design: the setup is a host-side sweep over PER-PART row blocks
 (never assembling any level as one matrix — the input can come straight
 from per-part generators or per-rank files), with three explicit exchange
 helpers standing in for the reference's point-to-point messages:
@@ -34,7 +34,7 @@ cycle (static shapes, no convergence branch).
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +42,7 @@ import numpy as np
 
 from ..solvers.multigrid.aggregation import _aggregate, strength_connect
 from .ops import shard_spmv
-from .partition import GlobalCSR, global_csr_from_blocks
+from .partition import GlobalCSR, global_csr_from_blocks, shard_stacked
 
 
 class DistLevels(NamedTuple):
@@ -341,7 +341,7 @@ def _inv_diag_stacked(mats, offs, nparts, nl) -> jnp.ndarray:
         d = mats[p].diagonal(int(offs[p]))
         iv = np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 1.0)
         out[p, :len(iv)] = iv
-    return jnp.asarray(out.astype(mats[0].dtype))
+    return shard_stacked(out.astype(mats[0].dtype))
 
 
 def _blocks_of(mats) -> list:
@@ -393,8 +393,7 @@ def distributed_amg_setup(blocks, shape, *, kind: str = "sa",
                           omega: float = 2.0 / 3.0, strategy: str = "auto",
                           theta: float = 0.25,
                           interpolation: str = "direct",
-                          seed: int = 0, wjd: Optional[bool] = None
-                          ) -> DistLevels:
+                          seed: int = 0) -> DistLevels:
     """Build a distributed AMG hierarchy from per-part row blocks.
 
     `kind`: "sa" (smoothed aggregation, `dist_sa_level`), "rs"
@@ -426,7 +425,7 @@ def distributed_amg_setup(blocks, shape, *, kind: str = "sa",
     level_mats, level_offs = mats, offs
     while len(As) < max_levels - 1 and int(level_offs[-1]) > coarse_size:
         Ag = global_csr_from_blocks(
-            _blocks_of(level_mats), (int(level_offs[-1]),) * 2, wjd=wjd)
+            _blocks_of(level_mats), (int(level_offs[-1]),) * 2)
         if kind == "rs":
             P_m, R_m, Ac_m, coffs = dist_rs_level(
                 level_mats, level_offs, theta=theta,
@@ -451,25 +450,25 @@ def distributed_amg_setup(blocks, shape, *, kind: str = "sa",
         invds.append(_inv_diag_stacked(level_mats, level_offs, Pn,
                                        Ag.n_local))
         Ps.append(global_csr_from_blocks(
-            _blocks_of(P_m), (int(level_offs[-1]), NC), wjd=False))
+            _blocks_of(P_m), (int(level_offs[-1]), NC)))
         # R and Ac come out on the uneven per-part aggregate partition —
         # re-home them onto the equal coarse partition (coarse-PM derivation)
         R_eq, _ = _reblock(R_m, coffs, int(level_offs[-1]), Pn)
         Rs.append(global_csr_from_blocks(
-            _blocks_of(R_eq), (NC, int(level_offs[-1])), wjd=False))
+            _blocks_of(R_eq), (NC, int(level_offs[-1]))))
         level_mats, level_offs = _reblock(Ac_m, coffs, NC, Pn)
 
     # coarsest level: sharded operator + Jacobi diagonal (no dense inverse)
     Ac_g = global_csr_from_blocks(
-        _blocks_of(level_mats), (int(level_offs[-1]),) * 2, wjd=wjd)
+        _blocks_of(level_mats), (int(level_offs[-1]),) * 2)
     As.append(Ac_g)
     coarse_inv = _inv_diag_stacked(level_mats, level_offs, Pn, Ac_g.n_local)
     return DistLevels(tuple(As), tuple(Ps), tuple(Rs), tuple(invds),
                       coarse_inv)
 
 
-def dist_levels_from_blocks(A_blocks, P_blocks, R_blocks, sizes, *,
-                            wjd: Optional[bool] = None) -> DistLevels:
+def dist_levels_from_blocks(A_blocks, P_blocks, R_blocks, sizes
+                            ) -> DistLevels:
     """Distributed GEOMETRIC multigrid entry: build a DistLevels hierarchy
     from USER-SUPPLIED per-level, per-part row blocks — the analog of the
     reference's MultiGrid solver for GlobalMatrix, where the user calls
@@ -506,17 +505,17 @@ def dist_levels_from_blocks(A_blocks, P_blocks, R_blocks, sizes, *,
     for l in range(nlev):
         n = int(sizes[l])
         mats, offs = _mats(A_blocks[l], n, n)
-        Ag = global_csr_from_blocks(_blocks_of(mats), (n, n), wjd=wjd)
+        Ag = global_csr_from_blocks(_blocks_of(mats), (n, n))
         As.append(Ag)
         if l < nlev - 1:
             invds.append(_inv_diag_stacked(mats, offs, Pn, Ag.n_local))
             nc = int(sizes[l + 1])
             Pm, _ = _mats(P_blocks[l], n, nc)
             Ps.append(global_csr_from_blocks(
-                _blocks_of(Pm), (n, nc), wjd=False))
+                _blocks_of(Pm), (n, nc)))
             Rm, _ = _mats(R_blocks[l], nc, n)
             Rs.append(global_csr_from_blocks(
-                _blocks_of(Rm), (nc, n), wjd=False))
+                _blocks_of(Rm), (nc, n)))
         else:
             coarse_inv = _inv_diag_stacked(mats, offs, Pn, Ag.n_local)
     return DistLevels(tuple(As), tuple(Ps), tuple(Rs), tuple(invds),
@@ -539,7 +538,8 @@ def dist_amg_solve_sharded(solver: Callable, dl: DistLevels, b, *,
     Ag = dl.As[0]
     if mesh is None:
         mesh = make_mesh(Ag.nparts)
-    bp = distribute_vector(np.asarray(b), Ag.nparts, Ag.n_local)
+    dl, bp = shard_stacked(
+        (dl, distribute_vector(np.asarray(b), Ag.nparts, Ag.n_local)), mesh)
 
     def shard_fn(dl, b_l):
         op = lambda x: shard_spmv(dl.As[0], x, AXIS)
@@ -551,8 +551,8 @@ def dist_amg_solve_sharded(solver: Callable, dl: DistLevels, b, *,
 
     in_specs = (jax.tree.map(lambda _: P(AXIS), dl), P(AXIS))
     out_specs = (P(AXIS), jax.tree.map(lambda _: P(AXIS), _info_struct()))
-    fn = jax.shard_map(shard_fn, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_vma=False)
+    fn = jax.jit(jax.shard_map(shard_fn, mesh=mesh, in_specs=in_specs,
+                               out_specs=out_specs, check_vma=False))
     xp, info_stacked = fn(dl, bp)
     info = jax.tree.map(lambda v: v[0], info_stacked)
     return gather_vector(xp, Ag.n_global), info

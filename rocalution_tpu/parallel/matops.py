@@ -73,7 +73,7 @@ def _transpose_exchange(mats, offs, col_offs):
     return out
 
 
-def global_transpose(Ag: GlobalCSR, **kwargs) -> GlobalCSR:
+def global_transpose(Ag: GlobalCSR) -> GlobalCSR:
     """A^T of a distributed operator (reference: GlobalMatrix::Transpose,
     global_matrix.hpp:212). Rows of the result follow the EQUAL partition
     of A's columns."""
@@ -84,11 +84,11 @@ def global_transpose(Ag: GlobalCSR, **kwargs) -> GlobalCSR:
     col_offs = _offsets(Ag.nparts, ncol)
     t_mats = _transpose_exchange(mats, offs, col_offs)
     return global_csr_from_blocks(
-        _blocks_of(t_mats), (ncol, int(offs[-1])), **kwargs)
+        _blocks_of(t_mats), (ncol, int(offs[-1])))
 
 
-def global_triple_product(Rg: GlobalCSR, Ag: GlobalCSR, Pg: GlobalCSR,
-                          **kwargs) -> GlobalCSR:
+def global_triple_product(Rg: GlobalCSR, Ag: GlobalCSR, Pg: GlobalCSR
+                          ) -> GlobalCSR:
     """R·A·P of distributed operators (reference:
     GlobalMatrix::TripleMatrixProduct, global_matrix.hpp:219): AP with
     owner-fetched ghost rows of P, then R·(AP) with owner-fetched rows —
@@ -112,4 +112,4 @@ def global_triple_product(Rg: GlobalCSR, Ag: GlobalCSR, Pg: GlobalCSR,
         APfull = _fetch_rows(AP, a_offs, cols, NC)
         out.append((Rq @ APfull).tocsr())
     NR = int(r_offs[-1])
-    return global_csr_from_blocks(_blocks_of(out), (NR, NC), **kwargs)
+    return global_csr_from_blocks(_blocks_of(out), (NR, NC))

@@ -6,7 +6,7 @@ messages (src/base/parallel_manager.cpp:726-782; per-rank IO + PM setup,
 docs/api-reference/multinode.rst:126-155), then all ranks run the same
 solver SPMD.
 
-TPU-native formulation: `jax.distributed.initialize` (via `backend.init`)
+JAX formulation: `jax.distributed.initialize` (via `backend.init`)
 federates the processes; the only setup-phase exchange the GlobalCSR
 layout needs is each part's GHOST COLUMN LIST (boundary-size metadata),
 carried by `multihost_utils.process_allgather` — the analog of the
@@ -19,9 +19,11 @@ across all processes' devices; collectives (`psum`/`ppermute`) ride the
 real interconnect.
 
 Works on any backend jax.distributed supports — the 2-process CPU (gloo)
-configuration is exercised by tests/test_multiproc.py; on TPU pods the
-same code runs per host with no changes (see docs/guide.md "Multi-process
-execution").
+configuration is exercised by tests/test_multiproc.py. On GPUs, start one
+process per card, each with its own ``CUDA_VISIBLE_DEVICES`` (a JAX
+process reserves most of the memory of every card it sees), and pass
+``coordinator_address``/``num_processes``/``process_id`` to `backend.init`
+(see docs/guide.md "Multi-process execution").
 """
 
 from __future__ import annotations
@@ -193,7 +195,6 @@ def global_csr_multiproc(block, shape, *, mesh=None,
         send_idx=lift1(send_own, max_send, 0, np.int32),
         recv_idx=lift1(recv_own, max_ghost, 0, np.int32),
         send_off=lift(send_off_own.astype(np.int32), (None, None)),
-        int_wjd=None,
         nparts=Pn,
         n_local=nl,
         n_global=n,

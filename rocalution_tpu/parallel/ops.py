@@ -2,9 +2,9 @@
 
 Reference parity: GlobalMatrix::Apply with overlapped halo exchange
 (src/base/global_matrix.cpp:924-1009) and GlobalVector reductions
-(global_vector.cpp:547-585). The TPU formulation: boundary values are
-gathered by a static take, exchanged with one `all_gather` over the mesh
-axis (fixed-size buffers → deterministic, collective rides ICI), and the
+(global_vector.cpp:547-585). The JAX formulation: boundary values are
+gathered by a static take, exchanged over the mesh axis with fixed-size
+buffers (deterministic; XLA hands the collective to NCCL), and the
 interior SpMV is issued before the ghost SpMV so XLA's latency-hiding
 scheduler overlaps it with the collective — the role of the reference's
 interior/ghost HIP streams.
@@ -15,7 +15,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..ops.spmv import _use_pallas
 from .partition import GlobalCSR
 
 
@@ -40,7 +39,7 @@ def shard_spmv(A: GlobalCSR, x_local: jnp.ndarray, axis_name: str) -> jnp.ndarra
 
     Neighbor-sparse mode: one `ppermute` per static neighbor shift — comm
     volume is the true boundary size (the reference's Isend/Irecv-per-
-    neighbor property, parallel_manager.cpp:726-782), riding ICI.
+    neighbor property, parallel_manager.cpp:726-782).
     Fallback (partitions coupling many parts): one `all_gather` of the
     fixed-size boundary buffer. Either way the collective is issued before
     the interior SpMV so XLA's latency-hiding scheduler overlaps them (the
@@ -60,20 +59,11 @@ def shard_spmv(A: GlobalCSR, x_local: jnp.ndarray, axis_name: str) -> jnp.ndarra
         send = x_local[v.send_idx]
         all_send = jax.lax.all_gather(send, axis_name)      # (P, max_send)
         recv_flat = all_send.reshape(-1)
-    # interior SpMV (overlaps with the collectives under XLA scheduling);
-    # rides the per-shard WJD Pallas kernel when attached — the reference
-    # runs the SAME optimized csrmv on each rank's interior
-    # (global_matrix.cpp:976-1007)
-    if A.int_wjd is not None and _use_pallas(A.int_wjd, x_local.dtype):
-        from ..formats.wjd import shard_of
-        from ..ops.pallas.spmv_wjd import wjd_spmv
-
-        y = wjd_spmv(shard_of(A.int_wjd, 0), x_local)
-    else:
-        y = jax.ops.segment_sum(
-            v.int_data * x_local[v.int_cols], v.int_rows,
-            num_segments=nl, indices_are_sorted=True,
-        )
+    # interior SpMV (overlaps with the collectives under XLA scheduling)
+    y = jax.ops.segment_sum(
+        v.int_data * x_local[v.int_cols], v.int_rows,
+        num_segments=nl, indices_are_sorted=True,
+    )
     # ghost SpMV on the received boundary values
     ghost_vals = recv_flat[v.recv_idx]                      # (max_ghost,)
     y = y + jax.ops.segment_sum(

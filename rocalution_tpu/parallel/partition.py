@@ -7,9 +7,11 @@ non-overlapping block-row partition; each rank holds an *interior* matrix
 others, renumbered into a ghost buffer), plus boundary send lists and
 ghost→owner receive maps.
 
-TPU-native design: all parts live in ONE program as stacked (P, ...) arrays
-consumed by `shard_map` over a device mesh. Shapes are padded to per-part
-maxima so every shard is identical — static shapes are what XLA wants. The
+Design: all parts live in ONE program as stacked (P, ...) arrays
+consumed by `shard_map` over a device mesh; part p's slice sits on the
+mesh's p-th device from construction on (`shard_stacked`). Shapes are
+padded to per-part maxima so every shard is identical — static shapes are
+what XLA wants. The
 MPI Isend/Irecv neighbor plumbing (parallel_manager.cpp:726-782) becomes a
 static gather → `all_gather` of fixed-size boundary buffers → static take;
 deterministic by construction (matches the reference's fixed communication
@@ -19,13 +21,41 @@ order guarantee).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 from ..formats import CSR, to_csr
 from ..formats.base import register_format, static_field
+
+AXIS = "p"
+
+
+def make_mesh(nparts: int, devices=None) -> Mesh:
+    devices = devices if devices is not None else jax.devices()[:nparts]
+    if len(devices) < nparts:
+        raise ValueError(
+            f"need {nparts} devices for {nparts} parts, have {len(devices)}"
+        )
+    return Mesh(np.asarray(devices).reshape(nparts), (AXIS,))
+
+
+def shard_stacked(tree, mesh: Optional[Mesh] = None):
+    """Place every (P, ...) leaf of `tree` so that part p sits on the p-th
+    device of `mesh` (default: `make_mesh(P)`). Leaves already placed so
+    are not copied. Without a mesh and with fewer devices than parts (host
+    bookkeeping of more parts than the process sees) the leaves go to the
+    default device; a solve over them needs a mesh of P devices, and the
+    solve entry points place them on it."""
+    if mesh is None:
+        nparts = jax.tree.leaves(tree)[0].shape[0]
+        if jax.device_count() < nparts:
+            return jax.tree.map(jnp.asarray, tree)
+        mesh = make_mesh(nparts)
+    return jax.device_put(tree, NamedSharding(mesh, PartitionSpec(AXIS)))
 
 
 @register_format
@@ -46,11 +76,6 @@ class GlobalCSR:
     send_idx: jnp.ndarray    # (P, max_send) local rows gathered into send buffer
     recv_idx: jnp.ndarray    # (P, max_ghost) flat recv-buffer indices
     send_off: jnp.ndarray    # (P, D, W) per-shift send lists (neighbor mode)
-    # stacked per-part WJD fast-apply of the interior shards (leading (P,)
-    # axis on every array; see formats/wjd.stack_wjd) — the analog of the
-    # reference running its optimized csrmv on each rank's interior matrix
-    # (global_matrix.cpp:976-1007). None = XLA segment-sum path.
-    int_wjd: object = None
     nparts: int = static_field(default=1)
     n_local: int = static_field(default=0)      # rows per part
     n_global: int = static_field(default=0)    # true (unpadded) row count
@@ -89,8 +114,7 @@ def _pad1(a, length, fill=0):
     return out
 
 
-def distribute_csr(A, nparts: int, max_neighbor_shifts: int = 6,
-                   wjd: bool | None = None) -> GlobalCSR:
+def distribute_csr(A, nparts: int, max_neighbor_shifts: int = 6) -> GlobalCSR:
     """Partition a host CSR into a GlobalCSR over `nparts` shards.
 
     Mirrors the boundary/ghost classification of clients/include/common.hpp:
@@ -99,11 +123,6 @@ def distribute_csr(A, nparts: int, max_neighbor_shifts: int = 6,
     stays 0). Rectangular operators (AMG transfer P/R) are supported: rows
     follow the row partition, columns the column partition; padding rows
     are simply empty.
-
-    `wjd`: build the stacked per-part WJD fast-apply for the interior
-    shards (None = auto: on for the TPU backend / config.auto_wjd, like
-    the serial path; the ghost shard stays on the XLA path — its work is
-    proportional to the boundary only).
     """
     csr = to_csr(A)
     data, cols, indptr = csr.numpy_triplet()
@@ -116,11 +135,11 @@ def distribute_csr(A, nparts: int, max_neighbor_shifts: int = 6,
         m = (rows >= p * nl) & (rows < (p + 1) * nl)
         blocks.append((rows[m] - p * nl, cols[m], data[m]))
     return global_csr_from_blocks(
-        blocks, (n, ncol), max_neighbor_shifts=max_neighbor_shifts, wjd=wjd)
+        blocks, (n, ncol), max_neighbor_shifts=max_neighbor_shifts)
 
 
-def global_csr_from_blocks(blocks, shape, max_neighbor_shifts: int = 6,
-                           wjd: bool | None = None) -> GlobalCSR:
+def global_csr_from_blocks(blocks, shape,
+                           max_neighbor_shifts: int = 6) -> GlobalCSR:
     """Assemble a GlobalCSR from per-part row blocks — the ParallelManager
     construction core (reference: distribute_matrix, common.hpp:56-300, and
     PM derivation for coarse operators, parallel_manager.hpp:204-212).
@@ -162,7 +181,7 @@ def global_csr_from_blocks(blocks, shape, max_neighbor_shifts: int = 6,
         part_c[p] = np.concatenate([part_c[p], extra])
         part_d[p] = np.concatenate(
             [part_d[p], np.ones(n_pad - n, dtype=dtype)])
-    for p in range(P):       # row-major order (segment_sum + WJD want it)
+    for p in range(P):       # row-major order (sorted segment_sum wants it)
         order = np.lexsort((part_c[p], part_r[p]))
         part_r[p], part_c[p], part_d[p] = (
             part_r[p][order], part_c[p][order], part_d[p][order])
@@ -265,30 +284,10 @@ def global_csr_from_blocks(blocks, shape, max_neighbor_shifts: int = 6,
     nnz_int = max(1, max(len(d) for d in int_d))
     nnz_gst = max(1, max(len(d) for d in gst_d))
 
-    # stacked WJD fast-apply of the interior shards
-    if wjd is None:
-        from ..ops.spmv import _auto_wjd_on
+    def stack(parts, length, fill, dt):
+        return np.stack([_pad1(x, length, fill) for x in parts]).astype(dt)
 
-        wjd = _auto_wjd_on() and np.dtype(dtype) in (np.float32, np.float64)
-    int_wjd = None
-    if wjd:
-        from ..formats.wjd import stack_wjd
-
-        triplets = []
-        for p in range(P):
-            order = np.lexsort((int_c[p], int_r[p]))
-            r_s, c_s, d_s = int_r[p][order], int_c[p][order], int_d[p][order]
-            indptr = np.zeros(nl + 1, np.int64)
-            np.add.at(indptr, r_s + 1, 1)
-            triplets.append((d_s, c_s, np.cumsum(indptr)))
-        int_wjd = stack_wjd(triplets, (nl, ncl))
-
-    def stack(parts, length, fill, dt=None):
-        out = np.stack([_pad1(x, length, fill) for x in parts])
-        return jnp.asarray(out if dt is None else out.astype(dt))
-
-    out = GlobalCSR(
-        int_wjd=int_wjd,
+    arrays = shard_stacked(dict(
         int_data=stack(int_d, nnz_int, 0, dtype),
         int_cols=stack(int_c, nnz_int, 0, np.int32),
         int_rows=stack(int_r, nnz_int, nl - 1, np.int32),
@@ -297,7 +296,10 @@ def global_csr_from_blocks(blocks, shape, max_neighbor_shifts: int = 6,
         ghost_rows=stack(gst_r, nnz_gst, nl - 1, np.int32),
         send_idx=stack(send_of, max_send, 0, np.int32),
         recv_idx=stack(recv_of, max_ghost, 0, np.int32),
-        send_off=jnp.asarray(send_off_np.astype(np.int32)),
+        send_off=send_off_np.astype(np.int32),
+    ))
+    out = GlobalCSR(
+        **arrays,
         nparts=P,
         n_local=nl,
         n_global=n,
@@ -313,12 +315,13 @@ def global_csr_from_blocks(blocks, shape, max_neighbor_shifts: int = 6,
 
 
 def distribute_vector(v, nparts: int, n_local: int) -> jnp.ndarray:
-    """Pad and reshape a global vector to stacked per-part shards (P, n_local)."""
+    """Pad and reshape a global vector to stacked per-part shards (P, n_local),
+    placed by `shard_stacked`."""
     v = np.asarray(v)
     n_pad = nparts * n_local
     out = np.zeros((n_pad,) + v.shape[1:], dtype=v.dtype)
     out[: len(v)] = v
-    return jnp.asarray(out.reshape((nparts, n_local) + v.shape[1:]))
+    return shard_stacked(out.reshape((nparts, n_local) + v.shape[1:]))
 
 
 def gather_vector(vp, n_global: int) -> jnp.ndarray:

@@ -6,7 +6,7 @@ rank's diagonal block — SPAI (fgmres_mpi.cpp), FSAI (idr_mpi.cpp,
 global-io_mpi.cpp), ILU (fcg_mpi.cpp), ILUT (qmrcgstab_mpi.cpp); see
 preconditioner_blockjacobi.hpp:34-45.
 
-TPU formulation: each part's diagonal block gets its local preconditioner
+Formulation: each part's diagonal block gets its local preconditioner
 built host-side at setup; the per-block operators are STACKED with a
 leading (P,) axis and applied inside `shard_map` with the same SPMD
 program on every shard (COO segment-sum applies / Jacobi tri-sweeps —
@@ -20,11 +20,10 @@ import dataclasses
 from typing import Any, Tuple
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 from ..formats import CSR
-from .partition import GlobalCSR
+from .partition import GlobalCSR, shard_stacked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +115,7 @@ def _stack_coo(mats, nnz=None):
     for p, (r, c, d) in enumerate(trips):
         k = len(r)
         R[p, :k], C[p, :k], D[p, :k] = r, c, d
-    return jnp.asarray(R), jnp.asarray(C), jnp.asarray(D)
+    return shard_stacked((R, C, D))
 
 
 def block_jacobi_precond(A: GlobalCSR, kind: str = "spai", *,
@@ -156,7 +155,7 @@ def block_jacobi_precond(A: GlobalCSR, kind: str = "spai", *,
             Us.append(extract_upper(U, diag=False))   # strict upper
         lr, lc, ld = _stack_coo(Ls)
         ur, uc, ud = _stack_coo(Us)
-        invd = jnp.asarray(np.stack(invds))
+        invd = shard_stacked(np.stack(invds))
         return ShardPrecond((lr, lc, ld, ur, uc, ud, invd), "sweeps",
                             sweeps=sweeps)
     raise ValueError(f"unknown block preconditioner kind {kind!r}")

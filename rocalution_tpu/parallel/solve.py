@@ -19,19 +19,9 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..solvers.iter_ctrl import SolverInfo
-from .ops import ShardView, shard_operator
-from .partition import GlobalCSR, distribute_vector, gather_vector
-
-AXIS = "p"
-
-
-def make_mesh(nparts: int, devices=None) -> Mesh:
-    devices = devices if devices is not None else jax.devices()[:nparts]
-    if len(devices) < nparts:
-        raise ValueError(
-            f"need {nparts} devices for {nparts} parts, have {len(devices)}"
-        )
-    return Mesh(np.asarray(devices).reshape(nparts), (AXIS,))
+from .ops import shard_operator
+from .partition import (AXIS, GlobalCSR, distribute_vector, gather_vector,
+                        make_mesh, shard_stacked)
 
 
 def dist_solve(
@@ -87,19 +77,25 @@ def dist_solve(
         )
         return x[None], jax.tree.map(lambda v: jnp.asarray(v)[None], info)
 
-    zeros = jnp.zeros((P_, A.n_local), bp.dtype)
+    zeros = np.zeros((P_, A.n_local), bp.dtype)
     m_arg = M.arrays if is_sp else (M if has_m else zeros)
+    # every (P, ...) operand on its own device of the mesh, whichever
+    # device the caller built it on
+    A, bp, x0p, m_arg = shard_stacked(
+        (A, bp, x0p if has_x0 else zeros, m_arg), mesh)
     in_specs = (
         jax.tree.map(lambda _: P(AXIS), A),
         P(AXIS), P(AXIS), jax.tree.map(lambda _: P(AXIS), m_arg),
     )
     out_specs = (P(AXIS), jax.tree.map(lambda _: P(AXIS), _info_struct()))
 
-    fn = jax.shard_map(
+    # one compiled program (an eager shard_map dispatches and compiles
+    # operation by operation)
+    fn = jax.jit(jax.shard_map(
         shard_fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
         check_vma=False,
-    )
-    xp, info_stacked = fn(A, bp, x0p if has_x0 else zeros, m_arg)
+    ))
+    xp, info_stacked = fn(A, bp, x0p, m_arg)
     info = jax.tree.map(lambda v: v[0], info_stacked)
     return gather_vector(xp, A.n_global), info
 
@@ -121,4 +117,4 @@ def block_jacobi_diag(A: GlobalCSR) -> jnp.ndarray:
     for p in range(P_):
         np.add.at(diag[p], rows[p][is_diag[p]], data[p][is_diag[p]])
     inv = np.where(diag != 0, 1.0 / np.where(diag == 0, 1.0, diag), 1.0)
-    return jnp.asarray(inv)
+    return shard_stacked(inv)

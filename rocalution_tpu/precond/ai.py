@@ -5,12 +5,11 @@ Chebyshev polynomial of A^{-1}), FSAI(q) (factorized sparse approximate
 inverse over the power-q lower pattern), SPAI (Frobenius-minimal sparse
 approximate inverse), TNS (truncated Neumann series).
 
-TPU-native design: the reference computes FSAI/SPAI with *host-only* kernels
+Design: the reference computes FSAI/SPAI with *host-only* kernels
 (absent from hip_matrix_csr.hpp); here their setup reduces to BATCHED small
-dense solves — (n, m, m) `jnp.linalg.solve` / normal equations — which is an
-MXU-perfect formulation. The applies are pure SpMV chains, the most
-TPU-friendly preconditioner class in the library (no triangular recurrences
-at all).
+dense solves — (n, m, m) solves / normal equations. The applies are pure
+SpMV chains, the most data-parallel preconditioner class in the library
+(no triangular recurrences at all).
 """
 
 from __future__ import annotations
@@ -70,8 +69,7 @@ def fsai_matrices(A, q: int = 1):
         blocks[i, :k, :k] = Sd[J, :][:, J].toarray()
         rhs[i, k - 1] = 1.0  # J sorted ascending; diagonal entry last
 
-    # batched small solves on the host: setup-phase work, and XLA's
-    # LuDecomposition is f32-only on TPU (f64 stays exact here)
+    # batched small solves on the host: setup-phase work
     g = np.linalg.solve(blocks, rhs[..., None]).squeeze(-1)
     rows, cols, vals = [], [], []
     for i in range(n):

@@ -11,10 +11,10 @@ Reference parity:
   `Set(num_blocks, overlap, ...)`; AS recombines overlap with 1/2 weights
   (preconditioner_as.hpp:34-114), RAS keeps only the owner's interior.
 
-TPU-native design: uniform diagonal blocks are stored as one (nb, bs, bs)
+Design: uniform diagonal blocks are stored as one (nb, bs, bs)
 stack and inverted once at setup; every apply is then a single batched
-matmul riding the MXU — no per-block loops on device. Schwarz overlap
-gather/scatter are static index arrays.
+matmul (at `Precision.HIGHEST`, never TF32) — no per-block loops on device.
+Schwarz overlap gather/scatter are static index arrays.
 """
 
 from __future__ import annotations
@@ -59,14 +59,14 @@ def block_jacobi(A, num_blocks: int = 8):
     bs = -(-n // num_blocks)
     offsets = np.minimum(np.arange(num_blocks + 1) * bs, n)
     blocks = _dense_blocks(csr, offsets, bs)
-    # invert on host: setup-phase, and TPU LuDecomposition is f32-only
-    inv = jnp.asarray(np.linalg.inv(blocks))     # (nb, bs, bs)
+    inv = jnp.asarray(np.linalg.inv(blocks))     # (nb, bs, bs), host setup
     pad = num_blocks * bs - n
 
     def apply(r):
         rp = jnp.pad(r, (0, pad)) if pad else r
         rb = rp.reshape(num_blocks, bs)
-        zb = jnp.einsum("kij,kj->ki", inv, rb)
+        zb = jnp.einsum("kij,kj->ki", inv, rb,
+                        precision=jax.lax.Precision.HIGHEST)
         return zb.reshape(-1)[:n]
 
     return apply
@@ -113,7 +113,7 @@ def additive_schwarz(A, num_blocks: int = 4, overlap: int = 4,
     recombination (reference: AS/RAS Set(nb, overlap, preconds)).
 
     `inner(block_csr) -> closure` builds the per-block solver (default:
-    dense inverse — batched on the MXU). `restricted=True` gives RAS.
+    dense inverse, batched). `restricted=True` gives RAS.
     """
     csr = A if isinstance(A, CSR) else to_csr(A)
     n = csr.shape[0]
@@ -138,7 +138,8 @@ def additive_schwarz(A, num_blocks: int = 4, overlap: int = 4,
         inv = jnp.asarray(np.linalg.inv(blocks))
 
         def block_solve(k, rk):  # rk padded to width
-            return inv[k] @ rk
+            return jnp.matmul(inv[k], rk,
+                              precision=jax.lax.Precision.HIGHEST)
 
         solvers = [lambda rk, k=k: block_solve(k, rk)
                    for k in range(num_blocks)]

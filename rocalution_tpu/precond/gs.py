@@ -4,7 +4,7 @@ Reference parity: GS, SGS (src/solvers/preconditioners/preconditioner.cpp —
 Build extracts the triangular splits, apply = LSolve/LLSolve) plus the SOR
 relaxation family. Applies are exact triangular solves.
 
-TPU-native: the split is host-side setup; each apply is a LevelSchedule
+Design: the split is host-side setup; each apply is a LevelSchedule
 `lax.scan` (see ops/trisolve) — one compiled program, no host syncs.
 """
 

@@ -5,7 +5,7 @@ Reference parity: ILU(p) / IC / ILUT / ItILU0 preconditioners
 preconditioner.hpp:250-273): Build runs the factorization via LocalMatrix
 ops, apply runs LUSolve / LLSolve.
 
-TPU-native: factorization is host-side setup (ops/factorize); the apply is
+Design: factorization is host-side setup (ops/factorize); the apply is
 either exact level-scheduled scans (`method="levels"`, analog
 TriSolverAlg_Default) or fixed Jacobi sweeps on the factors
 (`method="jacobi"`, analog TriSolverAlg_Iterative / ItILU0,
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from functools import partial
 
+import jax
 import jax.numpy as jnp
 
 from ..formats import CSR, to_csr
@@ -35,8 +36,8 @@ def _lu_apply(L: CSR, U: CSR, method: str, sweeps: int):
             return solve_schedule(us, solve_schedule(ls, r))
     elif method == "jacobi":
         # csritsv-analysis analog, run NOW (setup phase): the sweep SpMV's
-        # off-diagonal operand + its WJD fast path must exist before the
-        # apply closure is traced inside a solver body
+        # off-diagonal operand must exist on the device before the apply
+        # closure is traced inside a solver body
         prepare_offd(L)
         prepare_offd(U)
 
@@ -126,7 +127,7 @@ def bsr_ilu0(A, *, method: str = "levels", sweeps: int = 8):
     * U is row-transformed by the block-diagonal inverses
       (Ũ = D_U^{-1} U, identity diagonal blocks) so the scalar factor is
       unit-upper — the per-block (bd, bd) solve becomes one batched
-      einsum + a unit triangular solve, both TPU-parallel.
+      einsum + a unit triangular solve, both data-parallel.
 
     Apply: z = Ũ^{-1} D_U^{-1} L^{-1} r — exactly (L_b U_b)^{-1} r of the
     block factorization."""
@@ -172,11 +173,12 @@ def bsr_ilu0(A, *, method: str = "levels", sweeps: int = 8):
 
 
 def _blockdiag_apply(dinv, y, bd, n):
-    """x_i = inv(D_ii) @ y_i per block row (batched einsum — MXU work)."""
+    """x_i = inv(D_ii) @ y_i per block row (one batched einsum)."""
     nrowb = dinv.shape[0]
     pad = nrowb * bd - y.shape[0]
     yp = jnp.concatenate([y, jnp.zeros((pad,), y.dtype)]) if pad else y
-    xb = jnp.einsum("nij,nj->ni", dinv, yp.reshape(nrowb, bd))
+    xb = jnp.einsum("nij,nj->ni", dinv, yp.reshape(nrowb, bd),
+                    precision=jax.lax.Precision.HIGHEST)
     return xb.reshape(-1)[:n]
 
 

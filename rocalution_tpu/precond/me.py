@@ -13,7 +13,7 @@ Reference parity:
   K = [A B; C 0] handled via the Jacobi-diagonal transform: block solves on
   A's diagonal and the diagonal-Jacobi Schur complement S = -C D_A^{-1} B.
 
-TPU-native: all permutations/Schur products are host-side setup (scipy
+Design: all permutations/Schur products are host-side setup (scipy
 SpGEMM); applies are gather + SpMV + recursive closure chains — one XLA
 program end to end.
 """
@@ -48,9 +48,9 @@ def _from_scipy(S) -> CSR:
 
 
 def _dense_inverse_solver(A: CSR) -> Callable:
-    # host-side inverse (setup phase; TPU LuDecomposition is f32-only)
+    # host-side inverse (setup phase)
     inv = jnp.asarray(np.linalg.inv(_scipy(A).toarray()))
-    return lambda r: inv @ r
+    return lambda r: jnp.matmul(inv, r, precision=jax.lax.Precision.HIGHEST)
 
 
 def multi_elimination(A, levels: int = 2, drop_tol: float = 0.0,
@@ -114,7 +114,7 @@ def variable_precond(preconds: Sequence[Callable]) -> Callable:
     """VariablePreconditioner: cycles among sub-preconditioners per
     application (reference: preconditioner.hpp:431-445).
 
-    TPU-native: the cycle counter is an on-device array ref (`jax.new_ref`)
+    Design: the cycle counter is an on-device array ref (`jax.new_ref`)
     mutated inside the traced apply, so the rotation advances per
     *application* even inside a `lax.while_loop` solver body — `lax.switch`
     selects the sub-preconditioner on device, matching the reference's

@@ -6,7 +6,7 @@ power(q)-pattern ``Set(p, q)`` (preconditioner_multicolored_ilu.hpp:75) —
 color-reorder the matrix so triangular sweeps become per-color parallel
 blocks.
 
-TPU-native: coloring runs host-side (Jones–Plassmann, ops/ordering); the
+Design: coloring runs host-side (Jones–Plassmann, ops/ordering); the
 permuted triangular factors feed the same LevelSchedule machinery as plain
 GS/ILU — Kahn layering on a color-permuted matrix produces ≤ num_colors
 levels (each a full-width batch), which is exactly the reference's

@@ -6,7 +6,7 @@ typically obtained from Gershgorin circles (LocalMatrix::Gershgorin,
 local_matrix.hpp:1074 — see rocalution_tpu.ops.spectral.gershgorin).
 Supports an inner preconditioner like the reference.
 
-TPU-native: one `lax.while_loop`; no inner products at all in the recurrence
+Design: one `lax.while_loop`; no inner products at all in the recurrence
 (the classic appeal of Chebyshev on parallel machines — only the convergence
 norm is a collective), so per-iteration cost is one SpMV + one precond apply.
 """

@@ -4,18 +4,16 @@ Reference parity: src/solvers/direct/{inversion,lu,qr}.{hpp,cpp} —
 dense-only direct solvers (Local only). Here they operate on any format by
 densifying (the reference requires ConvertToDENSE the same way).
 
-TPU-native constraint: XLA's LuDecomposition is f32/c64-only on TPU, while
-QR and TriangularSolve support f64. So `qr`/`inversion` run natively in f64
-via Householder QR, and `lu` on f64 inputs factorizes in f32 and recovers
-f64 accuracy with iterative refinement (the classic mixed-precision direct
-solve — the same strategy as MixedPrecisionDC, mixed_precision.cpp, applied
-to a dense factorization).
+All three run natively in the operand's dtype (f64 included): QR through
+Householder `jnp.linalg.qr`, LU through `jax.scipy.linalg.lu_factor`
+(cuSOLVER on a GPU). Dense products ask for `Precision.HIGHEST`, so an f32
+solve on a GPU does not drop to TF32.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.scipy.linalg import lu_factor as _lu_factor, lu_solve as _lu_solve
 from jax.scipy.linalg import solve_triangular
 
@@ -39,6 +37,10 @@ def _dense(A) -> jnp.ndarray:
     return jnp.asarray(A)
 
 
+def _matmul(A, x):
+    return jnp.matmul(A, x, precision=jax.lax.Precision.HIGHEST)
+
+
 def _info(b, r):
     res = jnp.linalg.norm(r)
     return SolverInfo(
@@ -52,52 +54,38 @@ def _info(b, r):
 
 def qr_factor(A):
     """Build phase: Householder QR, returns a solve closure (reference
-    Build/Solve split; f64-native on TPU)."""
+    Build/Solve split)."""
     Ad = _dense(A)
     Q, R = jnp.linalg.qr(Ad)
-    return lambda b: solve_triangular(R, Q.T.conj() @ b, lower=False)
+    return lambda b: solve_triangular(R, _matmul(Q.T.conj(), b), lower=False)
 
 
 def qr(A, b):
     """Dense QR solve (reference: direct/qr.cpp — Householder QR)."""
     Ad = _dense(A)
     x = qr_factor(A)(b)
-    return x, _info(b, b - Ad @ x)
+    return x, _info(b, b - _matmul(Ad, x))
 
 
 def inversion(A, b):
     """Solve by explicit inverse (reference: direct/inversion.cpp). The
-    inverse is built QR-wise (R^{-1} Q^H) so it stays f64 on TPU."""
+    inverse is built QR-wise (R^{-1} Q^H)."""
     Ad = _dense(A)
     Q, R = jnp.linalg.qr(Ad)
     inv = solve_triangular(R, Q.T.conj(), lower=False)
-    x = inv @ b
-    return x, _info(b, b - Ad @ x)
+    x = _matmul(inv, b)
+    return x, _info(b, b - _matmul(Ad, x))
 
 
-def lu_factor(A, *, refine_steps: int = 3):
-    """Build phase for `lu`: f32 LU factors + f64 refinement closure."""
-    Ad = _dense(A)
-    if Ad.dtype == jnp.float64:
-        f = _lu_factor(Ad.astype(jnp.float32))
-
-        def solve(b):
-            x = _lu_solve(f, b.astype(jnp.float32)).astype(b.dtype)
-            for _ in range(refine_steps):
-                r = b - Ad @ x
-                x = x + _lu_solve(f, r.astype(jnp.float32)).astype(b.dtype)
-            return x
-
-        return solve
-    f = _lu_factor(Ad)
+def lu_factor(A):
+    """Build phase for `lu`: LU factors in the operand's dtype, returns a
+    solve closure."""
+    f = _lu_factor(_dense(A))
     return lambda b: _lu_solve(f, b)
 
 
-def lu(A, b, *, refine_steps: int = 3):
-    """Dense LU solve (reference: direct/lu.cpp). On f64 input the
-    factorization runs in f32 with `refine_steps` refinement sweeps in f64
-    (TPU LuDecomposition is f32-only; refinement restores ~1e-14 accuracy
-    for well-conditioned systems)."""
+def lu(A, b):
+    """Dense LU solve with partial pivoting (reference: direct/lu.cpp)."""
     Ad = _dense(A)
-    x = lu_factor(A, refine_steps=refine_steps)(b)
-    return x, _info(b, b - Ad @ x)
+    x = lu_factor(A)(b)
+    return x, _info(b, b - _matmul(Ad, x))

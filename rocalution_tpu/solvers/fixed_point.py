@@ -6,7 +6,7 @@ M = Jacobi this is weighted Jacobi; with M = (SGS/ILU/...) it is the
 corresponding stationary scheme. This is also the default AMG smoother
 (base_amg.cpp BuildSmoothers).
 
-TPU-native: one `lax.while_loop`; also exposes `fixed_point_sweeps`, the
+Design: one `lax.while_loop`; also exposes `fixed_point_sweeps`, the
 fixed-iteration-count no-convergence-check variant used as a multigrid
 smoother (no norms → no collectives → fully fused by XLA).
 """

@@ -6,7 +6,7 @@ mirrored exactly — statuses 0=none (incl. NaN/Inf stop), 1=absolute, 2=relativ
 CheckResidual (iter_ctrl.cpp:195-248); InitResidual (:89-122) may terminate
 immediately on NaN or on the absolute criterion.
 
-TPU-native twist: instead of a host-side object whose every check forces a
+Design: instead of a host-side object whose every check forces a
 device→host sync per Krylov iteration (the reference's hidden cost), the whole
 state machine is a small pytree carried through `lax.while_loop`, so the entire
 solve — convergence control included — runs on-device in one XLA program.

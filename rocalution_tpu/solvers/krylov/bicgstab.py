@@ -5,7 +5,7 @@ Vorst's stabilized bi-conjugate gradients with right preconditioning and the
 half-step convergence check (the reference checks ||s|| before the second
 matvec and exits early with the half update).
 
-TPU-native: one `lax.while_loop`; the half-step early exit is expressed as a
+Design: one `lax.while_loop`; the half-step early exit is expressed as a
 tree-select between the half and full updates (no host round trip), and
 breakdown divisions are guarded so masked lanes never produce NaN.
 """

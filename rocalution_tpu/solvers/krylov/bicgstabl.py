@@ -6,7 +6,7 @@ Reference parity: BiCGStabl (src/solvers/krylov/bicgstabl.{hpp,cpp}),
 recurrences run on the transformed system (A M) z = r0, x = x0 + M z, so the
 tracked residual is the true residual.
 
-TPU-native design: the order l is static, so the BiCG and MR sweeps unroll at
+Design: the order l is static, so the BiCG and MR sweeps unroll at
 trace time into straight-line vector code; the (l+1) direction/residual
 vectors live in stacked (l+1, n) carries. Convergence may hit at any of the
 l+1 checks per cycle — updates are masked by the live flag (guarded_check)

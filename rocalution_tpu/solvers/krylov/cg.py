@@ -5,7 +5,7 @@ Reference parity: CG::SolveNonPrecond_/SolvePrecond_
 definition (|b - A x_k|_2 checked after the x/r update), same use of the
 non-conjugated dot for rho, so residual histories match iterate-for-iterate.
 
-TPU-native design: the whole solve is one `lax.while_loop` whose carry holds
+Design: the whole solve is one `lax.while_loop` whose carry holds
 {x, r, z, p, rho, IterState}; convergence control runs on-device (no per-
 iteration host sync, unlike the reference's Norm_ round trip). Works for any
 operator/preconditioner callable — preconditioners may themselves be solvers

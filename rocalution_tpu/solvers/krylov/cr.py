@@ -7,7 +7,7 @@ serves Local and Global operators with one code path (pass ``axis_name=``
 inside shard_map for the distributed instantiation, analog cr.cpp Global
 template instantiation).
 
-TPU-native design: one `lax.while_loop`, all reductions on-device; the
+Design: one `lax.while_loop`, all reductions on-device; the
 preconditioned CR recurrence keeps both z = M r and v = A p in the carry so
 each iteration costs one SpMV + one preconditioner apply.
 """

@@ -5,8 +5,8 @@ Polak–Ribière (Notay) beta so the preconditioner may change between
 iterations (e.g. an inner iterative solver as preconditioner). Convergence
 semantics via IterationControl as everywhere.
 
-TPU-native: one `lax.while_loop`; the flexible beta costs one extra dot over
-plain CG — both dots ride the same fused VPU pass.
+Design: one `lax.while_loop`; the flexible beta costs one extra dot over
+plain CG — both dots ride the same fused elementwise pass.
 """
 
 from __future__ import annotations

@@ -7,13 +7,15 @@ residual estimate equals the true residual norm. FGMRES stores the
 preconditioned basis Z so the preconditioner may change every iteration
 (fgmres.hpp:48,75).
 
-TPU-native design: outer restarts are a `lax.while_loop`; each Arnoldi step
+Design: outer restarts are a `lax.while_loop`; each Arnoldi step
 orthogonalizes with classical Gram-Schmidt applied twice (CGS2) — two batched
 (m+1, n) @ (n,) products instead of j sequential dots, i.e. two collectives
 per iteration distributed, numerically equivalent to MGS. The Hessenberg
 triangularization (Givens) lives in small static (m,) carries; the
 least-squares solve pads unprocessed columns with identity so one static
-`solve_triangular` handles every early-exit length.
+`solve_triangular` handles every early-exit length. The basis products ask
+for `Precision.HIGHEST`: in TF32 (a GPU's default for f32 products) the
+CGS2 projections lose orthogonality and the iteration count grows.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ from jax.scipy.linalg import solve_triangular
 
 from ..iter_ctrl import IterationControl, info_from_state
 from ._common import prepare, safe_div
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _givens(a, b):
@@ -64,10 +70,10 @@ def _gmres_core(A, b, x0, M, ctrl, kwargs, *, flexible: bool):
         w = op(zj)
         # CGS2 orthogonalization against V[0..j]
         mask = (jnp.arange(m + 1) <= j).astype(w.dtype)
-        h1 = red.allreduce(jnp.conj(V) @ w) * mask
-        w = w - h1 @ V
-        h2 = red.allreduce(jnp.conj(V) @ w) * mask
-        w = w - h2 @ V
+        h1 = red.allreduce(_mm(jnp.conj(V), w)) * mask
+        w = w - _mm(h1, V)
+        h2 = red.allreduce(_mm(jnp.conj(V), w)) * mask
+        w = w - _mm(h2, V)
         h = h1 + h2
         hj1 = red.norm(w)
         V = V.at[j + 1].set(w / jnp.where(hj1 == 0, 1.0, hj1))
@@ -112,9 +118,9 @@ def _gmres_core(A, b, x0, M, ctrl, kwargs, *, flexible: bool):
         g_solve = jnp.where(jnp.arange(m) < j, g[:m], 0.0)
         y = solve_triangular(R, g_solve, lower=False)
         if flexible:
-            dx = y @ Z
+            dx = _mm(y, Z)
         else:
-            dx = precond(y @ V[:m])
+            dx = precond(_mm(y, V[:m]))
         return (x + dx, state)
 
     def outer_cond(carry):

@@ -5,11 +5,11 @@ and ``SetRandomSeed`` (idr.hpp:73-76). Implements the bi-orthogonalized
 IDR(s) variant (van Gijzen & Sonneveld), preconditioned, with the omega
 angle-correction (kappa = 0.7).
 
-TPU-native design: the shadow space dimension s is static, so the inner
+Design: the shadow space dimension s is static, so the inner
 k-sweep unrolls at trace time; the shadow basis P is an (s, n) block
 generated from a jax PRNG key and orthonormalized once at setup. All s
 shadow inner products per step batch into one (s, n) @ (n,) product — a
-single collective distributed. Mid-cycle convergence freezes updates via the
+single collective distributed, at `Precision.HIGHEST` (not TF32). Mid-cycle convergence freezes updates via the
 live mask (guarded_check).
 """
 
@@ -21,6 +21,10 @@ from jax.scipy.linalg import solve_triangular
 
 from ..iter_ctrl import IterationControl, info_from_state
 from ._common import guarded_check, prepare, safe_div
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def idr(A, b, x0=None, M=None, *, ctrl: IterationControl | None = None,
@@ -52,7 +56,7 @@ def idr(A, b, x0=None, M=None, *, ctrl: IterationControl | None = None,
     omega = jnp.ones((), dtype)
 
     def shadow_dots(v):
-        return red.allreduce(P @ v)  # (s,)
+        return red.allreduce(_mm(P, v))  # (s,)
 
     def cond(carry):
         return carry[-1].running
@@ -64,9 +68,9 @@ def idr(A, b, x0=None, M=None, *, ctrl: IterationControl | None = None,
             live = state.running
             # solve lower-triangular Mm[k:, k:] c = f[k:]
             c = solve_triangular(Mm[k:, k:], f[k:], lower=True)
-            v = r - c @ G[k:]
+            v = r - _mm(c, G[k:])
             v = precond(v)
-            u_new = c @ U[k:] + omega * v
+            u_new = _mm(c, U[k:]) + omega * v
             g_new = op(u_new)
             # bi-orthogonalize g_new against P[0..k-1] (sequential MGS-style,
             # each step needs the updated g_new)

@@ -4,7 +4,7 @@ Reference parity: QMRCGStab (src/solvers/krylov/qmrcgstab.{hpp,cpp}) — the
 Chan/Gallopoulos/Simoncini/Szeto/Tong algorithm: BiCGStab's two half-steps
 each followed by a QMR smoothing update. Right preconditioned.
 
-TPU-native design: one `lax.while_loop`; both half-step convergence checks
+Design: one `lax.while_loop`; both half-step convergence checks
 run on-device with the true residual of the smoothed iterate tracked cheaply
 via the quasi-residual tau (checked against ||r|| recurrence like the
 reference).

@@ -5,10 +5,9 @@ outer high-precision defect-correction loop around an inner low-precision
 solver: r_h = b - A x (fp64); r_l = cast(r_h); solve A_l d_l = r_l; x += cast
 (d_l); repeat (SolveNonPrecond_ loop, mixed_precision.cpp:369-399).
 
-TPU-native significance: fp64 on TPU is software-emulated while fp32/bf16 run
-at full hardware rate, so this pattern is *strategic* here (SURVEY.md §7
-"hard parts") — the inner Krylov solve rides native f32 while the outer loop
-restores f64 accuracy. The outer loop runs as a host-side Python loop (one
+Why it pays: Krylov solves are memory-bound, and an f32 CSR operator moves
+8 bytes per nonzero against 12 in f64 — the inner solve streams fewer bytes
+while the outer loop restores f64 accuracy. The outer loop runs as a host-side Python loop (one
 jitted inner solve per sweep), matching the reference's structure where the
 two precisions are distinct object hierarchies.
 """
@@ -30,13 +29,8 @@ def _cast_format(A, dtype):
     """Cast a format's value arrays to `dtype` (index arrays kept).
 
     Delegates to `formats.convert.cast_values`, which casts *host-side*
-    when a host cache exists — crucially preserving the `_host_cache`
-    attribute so `as_operator`/`maybe_attach_wjd` can attach the Pallas
-    fast path to the low-precision operator. (A bare `jax.tree.map`
-    rebuild drops object attributes, silently demoting the inner solve
-    to the collapsed XLA gather path on TPU — the reference runs the
-    same accelerator kernels at both precisions,
-    mixed_precision.cpp:369-399.)"""
+    when a host cache exists, preserving the `_host_cache` attribute (a
+    bare `jax.tree.map` rebuild drops object attributes)."""
     from ..formats.convert import cast_values
 
     return cast_values(A, dtype)
@@ -83,8 +77,6 @@ def mixed_precision_dc(
     else:
         op = as_operator(A)
         A_low = _cast_format(A, inner_dtype)
-        as_operator(A_low)  # eager: attach the fast path BEFORE tracing
-        # (maybe_attach_wjd refuses to build device caches inside a trace)
 
         from ..utils.hoist import hoisted_jit
 

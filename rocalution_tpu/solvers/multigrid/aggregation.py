@@ -28,8 +28,8 @@ from ...formats.base import get_host
 def _scipy(A: CSR):
     import scipy.sparse as sp
 
-    # native index dtype as-is: the int64 astype copies cost ~2 s at 14.6M
-    # nnz (profiled) and scipy handles int32/int64 equally
+    # native index dtype as-is: int64 astype copies cost seconds at
+    # millions of nnz, and scipy handles int32/int64 equally
     return sp.csr_matrix(
         (get_host(A, "data"), get_host(A, "indices"),
          get_host(A, "indptr")), shape=A.shape,
@@ -178,10 +178,9 @@ def pmis_aggregate(C, seed: int = 0) -> np.ndarray:
 def _relabel_by_first_row(agg: np.ndarray) -> np.ndarray:
     """Renumber aggregate ids by FIRST-OCCURRENCE fine-row order. Luby
     root order is a random permutation, which scrambles the coarse
-    numbering and destroys the bandedness of P/R/Ac (measured: the WJD
-    slot plan of R spills 72% of its entries under PMIS ids vs K=27 clean
-    slots when ids follow row order). Bandwidth-preserving coarse
-    numbering is free and makes every level TPU-servable."""
+    numbering and destroys the bandedness of P/R/Ac, and with it the
+    locality of every gather in their applies (and the DIA eligibility of
+    `convert_hierarchy`). Bandwidth-preserving coarse numbering is free."""
     n = len(agg)
     if n == 0:
         return agg
@@ -456,10 +455,9 @@ def pairwise_level(A: CSR, *, beta: float = 0.25, npass: int = 2,
 
 def _to_csr(S) -> CSR:
     # scipy output is already CSR — wrap its arrays directly (a COO
-    # round-trip re-sorts 14.6M entries: ~1 s per call, profiled).
-    # device=False: these are setup intermediates; convert_hierarchy
-    # materializes the final (usually f32) hierarchy — uploading the f64
-    # setup arrays would be pure waste on a slow-transfer platform.
+    # round-trip would re-sort every entry).
+    # device=False: these are setup intermediates; build_hierarchy uploads
+    # the levels the hierarchy keeps.
     S = S.tocsr()
     S.sort_indices()
     return CSR.from_arrays(S.data, S.indices, S.indptr, S.shape,

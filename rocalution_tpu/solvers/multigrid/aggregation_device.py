@@ -2,7 +2,7 @@
 
 The reference runs its PMIS-style setup kernels on the GPU
 (src/base/hip/hip_rsamg_csr.cpp, hip_kernels_rsamg_csr.hpp: strong-influence
-hashes, unassigned->coarse, coarse-edge passes). This is the TPU
+hashes, unassigned->coarse, coarse-edge passes). This is the JAX
 formulation: everything is segment-max sweeps over the strength graph's
 edge list inside one `lax.while_loop`, so the whole aggregation runs as a
 single XLA program on device.

@@ -4,7 +4,7 @@ Reference parity: `log_debug` (src/utils/log.hpp:67-86 — every public call
 traced to a per-run file with object/function/args) and LOG_INFO /
 LOG_VERBOSE_INFO levels (:100-124).
 
-TPU placement note: solver bodies are traced once and executed many times
+Placement note: solver bodies are traced once and executed many times
 under jit, so call tracing fires at TRACE time (one record per compiled
 call-site) — which is exactly the useful granularity here; per-iteration
 residuals are recorded on-device via `record_history` instead.

@@ -3,7 +3,7 @@
 The reference has no dedicated profiler — it offers `rocalution_time()`
 plus explicit syncs (src/utils/time_functions.*, samples/benchmark.cpp:
 104-118) and the log_debug call tracer (src/utils/log.hpp:67-86). The
-TPU-native analog is the XLA profiler: `with profile("dir"):` captures a
+analog here is the XLA profiler: `with profile("dir"):` captures a
 TensorBoard/xprof trace of everything dispatched inside (kernel timeline,
 collective/compute overlap, HBM traffic), and `annotate("name")` labels a
 region so solver phases are identifiable in the trace.

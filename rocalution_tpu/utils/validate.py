@@ -2,7 +2,7 @@
 local_matrix.hpp:99-106, run at every op entry when the debug flag is set;
 plus the divergence/NaN traps of iter_ctrl).
 
-TPU placement: host-side validation on the numpy caches (setup phase) plus
+Placement: host-side validation on the numpy caches (setup phase) plus
 a jittable `checkify`-style residual/NaN probe for device arrays.
 """
 

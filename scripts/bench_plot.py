@@ -4,7 +4,7 @@
 Reference parity: scripts/rocalution-bench-plot.py +
 rocalution-bench-compare.py (gnuplot analyze/solve/iter charts). Here the
 primary output is a markdown table grouped by case (terminal-first — the
-TPU rigs this targets are headless); `--png FILE` additionally renders a
+machines this targets are headless); `--png FILE` additionally renders a
 grouped bar chart when matplotlib is importable.
 
 Usage:

@@ -3,12 +3,12 @@
 
 The reference's defining distributed-perf feature is running the interior
 SpMV while the ghost exchange is in flight (3 HIP streams,
-global_matrix.cpp:924-1009). The TPU analog: XLA's latency-hiding
+global_matrix.cpp:924-1009). The JAX analog: XLA's latency-hiding
 scheduler overlaps the `ppermute`/`all-gather` collectives issued by
 parallel/ops.shard_spmv with the interior compute fusions. This tool reads
 a trace captured with rocalution_tpu.utils.profile.profile() and reports,
 per device timeline, how much collective time is covered by concurrent
-compute — the evidence BASELINE.md cites.
+compute.
 
 Usage: python scripts/trace_overlap.py /tmp/rt_trace [substr...]
 """

@@ -2,6 +2,7 @@
 benchmarks driver + key.cpp sample)."""
 
 import json
+import os
 import subprocess
 import sys
 
@@ -12,10 +13,12 @@ import numpy as np
 import rocalution_tpu as rt
 from rocalution_tpu.utils.key import matrix_key
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def test_bench_cli_json(tmp_path):
     env = {"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin",
-           "HOME": "/root", "PYTHONPATH": "/root/repo"}
+           "HOME": os.environ.get("HOME", ROOT), "PYTHONPATH": ROOT}
     out = subprocess.run(
         [sys.executable, "-m", "rocalution_tpu.bench_cli", "--solver", "cg",
          "--precond", "jacobi", "--format", "DIA", "--size", "16",
@@ -33,7 +36,7 @@ def test_bench_cli_json(tmp_path):
 
 def test_bench_cli_amg(tmp_path):
     env = {"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin",
-           "HOME": "/root", "PYTHONPATH": "/root/repo"}
+           "HOME": os.environ.get("HOME", ROOT), "PYTHONPATH": ROOT}
     out = subprocess.run(
         [sys.executable, "-m", "rocalution_tpu.bench_cli", "--solver",
          "saamg", "--size", "24"],
@@ -90,7 +93,7 @@ def test_sample_runs(sample):
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=420,
-        env={"PATH": "/usr/bin:/bin", "HOME": "/root",
+        env={"PATH": "/usr/bin:/bin", "HOME": os.environ.get("HOME", root),
              "PYTHONPATH": root,
              "POISSON_N": "24",        # CI-size for the scale demo
              "XLA_FLAGS": "--xla_force_host_platform_device_count=8"},
@@ -112,7 +115,7 @@ def test_bench_cli_sweep_and_tools(tmp_path):
     lists expand to the cartesian product, one JSON line per case plus a
     summary; bench_execute/bench_plot consume the JSONL."""
     env = {"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin",
-           "HOME": "/root", "PYTHONPATH": "/root/repo"}
+           "HOME": os.environ.get("HOME", ROOT), "PYTHONPATH": ROOT}
     out_file = str(tmp_path / "sweep.jsonl")
     out = subprocess.run(
         [sys.executable, "-m", "rocalution_tpu.bench_cli", "--solver",
@@ -129,7 +132,7 @@ def test_bench_cli_sweep_and_tools(tmp_path):
     out2 = subprocess.run(
         [sys.executable, "scripts/bench_plot.py", out_file],
         capture_output=True, text=True, env=env, timeout=60,
-        cwd="/root/repo",
+        cwd=ROOT,
     )
     assert out2.returncode == 0 and out2.stdout.count("\n") >= 9
     # compare tool: self-comparison gives 1.00x ratios
@@ -137,6 +140,6 @@ def test_bench_cli_sweep_and_tools(tmp_path):
         [sys.executable, "scripts/bench_plot.py", out_file,
          "--compare", out_file],
         capture_output=True, text=True, env=env, timeout=60,
-        cwd="/root/repo",
+        cwd=ROOT,
     )
     assert out3.returncode == 0 and "1.00x" in out3.stdout

@@ -1,4 +1,4 @@
-"""Distributed AMG setup tests (VERDICT r2 item 5): hierarchy built from
+"""Distributed AMG setup tests: hierarchy built from
 per-part row blocks with explicit boundary exchanges — never assembling a
 level as one matrix — and a sharded iterative coarse solve (reference:
 boundary-row CSR exchange + coarse-PM derivation, global_matrix.cpp:
@@ -76,7 +76,7 @@ def test_dist_amg_setup_and_solve_from_blocks():
     blocks = [laplacian_2d_block(n, int(offs[q]), int(offs[q + 1]))
               for q in range(NP)]
     dl = distributed_amg_setup(blocks, (N, N), coarse_size=60,
-                               strategy="greedy", wjd=False)
+                               strategy="greedy")
     assert len(dl.As) >= 2
     assert len(dl.Ps) == len(dl.As) - 1
     # rhs for x_true = 1 computed from the blocks alone
@@ -100,7 +100,7 @@ def test_dist_amg_matches_single_part():
     A = rt.laplacian_2d(12)
     blocks, offs = _blocks_from_csr(A, 1)
     dl = distributed_amg_setup(blocks, A.shape, coarse_size=30,
-                               strategy="greedy", wjd=False)
+                               strategy="greedy")
     b = np.asarray(rt.spmv(A, np.ones(A.shape[0])))
     x, info = dist_amg_solve_sharded(cg, dl, b, mesh=make_mesh(1),
                                      rel_tol=1e-8, max_iter=100)
@@ -109,7 +109,7 @@ def test_dist_amg_matches_single_part():
 
 
 def test_dist_rs_level_galerkin_exact():
-    """Distributed RS level (VERDICT r3 item 5): decoupled C/F + direct
+    """Distributed RS level: decoupled C/F + direct
     interpolation per part; the exchanged Galerkin product must still be
     the exact R·A·P of the FULL fine operator, with R = P^T."""
     from rocalution_tpu.parallel.amg_setup import dist_rs_level
@@ -145,8 +145,7 @@ def test_dist_rs_setup_and_solve():
     offs = _offsets(NP, N)
     blocks = [laplacian_2d_block(n, int(offs[q]), int(offs[q + 1]))
               for q in range(NP)]
-    dl = distributed_amg_setup(blocks, (N, N), kind="rs", coarse_size=60,
-                               wjd=False)
+    dl = distributed_amg_setup(blocks, (N, N), kind="rs", coarse_size=60)
     assert len(dl.As) >= 2
     b = np.zeros(N)
     for q, (r, c, d) in enumerate(blocks):
@@ -193,8 +192,8 @@ def test_global_transpose_and_triple_product():
     A = rt.laplacian_2d(12)
     d, i, p = A.numpy_triplet()
     S = sp.csr_matrix((d, i, p), shape=A.shape)
-    Ag = distribute_csr(A, NP, wjd=False)
-    Tg = global_transpose(Ag, wjd=False)
+    Ag = distribute_csr(A, NP)
+    Tg = global_transpose(Ag)
     mats, offs = _block_cache(Tg)
     T_assembled = _assemble(mats, offs, A.shape[0])
     assert (T_assembled != S.T.tocsr()).nnz == 0
@@ -205,14 +204,14 @@ def test_global_transpose_and_triple_product():
     NC = int(coffs[-1])
     Pg = global_csr_from_blocks(
         [( (c := m.tocoo()).row, c.col, c.data) for m in P_m],
-        (A.shape[0], NC), wjd=False)
-    Rg = global_transpose(Pg, wjd=False)
+        (A.shape[0], NC))
+    Rg = global_transpose(Pg)
     mats_r, offs_r = _block_cache(Rg)
     Rg_assembled = _assemble(mats_r, offs_r, A.shape[0])
     Pg_assembled = _assemble(*_block_cache(Pg), NC)
     assert (Rg_assembled != Pg_assembled.T.tocsr()).nnz == 0
 
-    Acg = global_triple_product(Rg, Ag, Pg, wjd=False)
+    Acg = global_triple_product(Rg, Ag, Pg)
     Ac_assembled = _assemble(*_block_cache(Acg), NC)
     ref = (Pg_assembled.T @ S @ Pg_assembled).tocsr()
     diff = Ac_assembled - ref
@@ -222,9 +221,9 @@ def test_global_transpose_and_triple_product():
 
 @pytest.mark.parametrize("cycle", ["W", "F", "K"])
 def test_dist_cycles(cycle):
-    """Distributed W/F/K cycles (VERDICT r3 item: dist closure was V-only;
-    reference runs every cycle at global scope, base_multigrid.cpp:720-981
-    instantiated for GlobalMatrix). Outer FCG tolerates the K-cycle's
+    """Distributed W/F/K cycles (the reference runs every cycle at global
+    scope, base_multigrid.cpp:720-981 instantiated for GlobalMatrix).
+    Outer FCG tolerates the K-cycle's
     variable preconditioning."""
     from rocalution_tpu.solvers.krylov.fcg import fcg
 
@@ -234,7 +233,7 @@ def test_dist_cycles(cycle):
     blocks = [laplacian_2d_block(n, int(offs[q]), int(offs[q + 1]))
               for q in range(NP)]
     dl = distributed_amg_setup(blocks, (N, N), coarse_size=60,
-                               strategy="greedy", wjd=False)
+                               strategy="greedy")
     b = np.zeros(N)
     for q, (r, c, d) in enumerate(blocks):
         np.add.at(b, r + int(offs[q]), d)
@@ -260,7 +259,7 @@ def test_dist_pairwise_setup_and_solve():
     blocks = [laplacian_2d_block(n, int(offs[q]), int(offs[q + 1]))
               for q in range(NP)]
     dl = distributed_amg_setup(blocks, (N, N), kind="pairwise",
-                               coarse_size=60, wjd=False)
+                               coarse_size=60)
     assert len(dl.As) >= 2
     b = np.zeros(N)
     for q, (r, c, d) in enumerate(blocks):
@@ -272,7 +271,7 @@ def test_dist_pairwise_setup_and_solve():
 
 
 def test_dist_ua_level_galerkin_exact():
-    """Distributed UA level (VERDICT r4 item 8): tentative-only P per
+    """Distributed UA level: tentative-only P per
     part; the exchanged Galerkin product must still be the exact R·A·P
     of the FULL fine operator (reference: global UAAMG,
     unsmoothed_amg.cpp GlobalMatrix instantiations)."""
@@ -308,7 +307,7 @@ def test_dist_ua_setup_and_solve():
     blocks = [laplacian_2d_block(n, int(offs[q]), int(offs[q + 1]))
               for q in range(NP)]
     dl = distributed_amg_setup(blocks, (N, N), kind="ua", coarse_size=60,
-                               strategy="greedy", wjd=False)
+                               strategy="greedy")
     assert len(dl.As) >= 2
     b = np.zeros(N)
     for q, (r, c, d) in enumerate(blocks):
@@ -341,8 +340,7 @@ def test_dist_geometric_mg_from_blocks():
     A_blocks = [blocks_of(lv.A, NP) for lv in h.levels]
     P_blocks = [blocks_of(lv.P, NP) for lv in h.levels[:-1]]
     R_blocks = [blocks_of(lv.R, NP) for lv in h.levels[:-1]]
-    dl = dist_levels_from_blocks(A_blocks, P_blocks, R_blocks, sizes,
-                                 wjd=False)
+    dl = dist_levels_from_blocks(A_blocks, P_blocks, R_blocks, sizes)
     assert len(dl.As) == len(sizes)
     b = np.asarray(rt.spmv(A, np.ones(A.shape[0])))
     x, info = dist_amg_solve_sharded(cg, dl, b, mesh=make_mesh(NP),

@@ -1,4 +1,4 @@
-"""Real-matrix fixture tests (VERDICT r2 item 7): solve matrices read
+"""Real-matrix fixture tests: solve matrices read
 from FILES end-to-end to 1e-8 — the reference's canonical smoke flow
 (CG on gr_30_30.mtx, README.md:66-73, testing_cg.hpp:28-38) — plus a
 golden rocsparseio file whose bytes were written directly from the spec

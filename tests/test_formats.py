@@ -29,22 +29,40 @@ def test_convert_roundtrip(A, fmt):
     np.testing.assert_allclose(dense_of(C), ref, atol=1e-14)
 
 
+def typed(A, dtype):
+    """A with its values in `dtype` (complex: a (1+0.5i) phase on each)."""
+    d, i, p = A.numpy_triplet()
+    if np.issubdtype(dtype, np.complexfloating):
+        d = d * (1.0 + 0.5j)
+    return rt.CSR.from_arrays(d.astype(dtype), i, p, A.shape)
+
+
+# f32 sums run in another order than the f64/numpy reference
+TOL = {np.float64: 1e-12, np.float32: 1e-5, np.complex128: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.complex128])
 @pytest.mark.parametrize("fmt", FORMATS)
-def test_spmv_matches_dense(A, fmt, rng):
-    ref = dense_of(A)
-    x = rng.standard_normal(A.shape[1])
-    B = convert(A, fmt)
+def test_spmv_matches_dense(A, fmt, dtype, rng):
+    At = typed(A, dtype)
+    ref = dense_of(At).astype(np.complex128)
+    x = rng.standard_normal(A.shape[1]).astype(dtype)
+    B = convert(At, fmt)
     y = np.asarray(rt.spmv(B, x))
-    np.testing.assert_allclose(y, ref @ x, rtol=1e-12, atol=1e-12)
+    assert y.dtype == np.dtype(dtype)
+    np.testing.assert_allclose(y, ref @ x, rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("fmt", ["CSR", "COO", "ELL", "BCSR", "DENSE"])
-def test_spmm_multiple_rhs(A, fmt, rng):
-    ref = dense_of(A)
-    X = rng.standard_normal((A.shape[1], 3))
-    B = convert(A, fmt)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_spmm_multiple_rhs(A, fmt, dtype, rng):
+    At = typed(A, dtype)
+    ref = dense_of(At).astype(np.float64)
+    X = rng.standard_normal((A.shape[1], 3)).astype(dtype)
+    B = convert(At, fmt)
     Y = np.asarray(rt.spmv(B, X))
-    np.testing.assert_allclose(Y, ref @ X, rtol=1e-12, atol=1e-12)
+    assert Y.shape == (A.shape[0], 3) and Y.dtype == np.dtype(dtype)
+    np.testing.assert_allclose(Y, ref @ X, rtol=TOL[dtype], atol=TOL[dtype])
 
 
 def test_nnz_counts(A):

@@ -228,7 +228,7 @@ def test_rocsparseio_dense_vector_roundtrip(tmp_path):
 
 def test_rocsparseio_mcsc_direction(tmp_path):
     """MCSC (COLUMN-direction MCSX, rocsparseio direction=1): previously
-    rejected (round-4 VERDICT item 9) — now normalized to an MCSR pytree.
+    rejected — now normalized to an MCSR pytree.
     A hand-built MCSC file of a known matrix must read back apply-equal."""
     import numpy as np
 

@@ -123,10 +123,9 @@ def test_mixed_precision_dc():
 
 
 def test_mixed_precision_inner_keeps_fast_path():
-    """The low-precision inner operator must keep its host cache so
-    `maybe_attach_wjd` can attach the Pallas fast path on TPU (round-4
-    regression: a tree.map rebuild dropped `_host_cache` and the inner
-    solve fell to the collapsed XLA gather path, mpdc_16k_ms=1535)."""
+    """The low-precision inner operator keeps its host cache through
+    `_cast_format` (a bare tree.map rebuild would drop `_host_cache`, and
+    host-side setup on the cast operator would read the device back)."""
     from rocalution_tpu.solvers.mixed_precision import _cast_format
 
     A, _, _, _ = _laplacian_problem(12)

@@ -1,4 +1,4 @@
-"""True multi-process distributed execution (round-4 VERDICT item 1/7):
+"""True multi-process distributed execution:
 two REAL OS processes federate via jax.distributed (gloo), each builds
 only its own row block, exchanges only boundary metadata, and runs one
 SPMD CG (reference: the per-rank MPI flow, parallel_manager.cpp:726-782,

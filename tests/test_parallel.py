@@ -171,46 +171,6 @@ def test_dist_rect_spmv(problem, rng):
     np.testing.assert_allclose(y, np.asarray(rt.spmv(Pm, xc)), rtol=1e-10)
 
 
-def test_dist_wjd_interior_spmv(problem, rng):
-    """Stacked per-part WJD interior apply inside shard_map matches the
-    XLA segment-sum path (reference: the same optimized csrmv serves every
-    rank's interior, global_matrix.cpp:976-1007)."""
-    from jax.sharding import PartitionSpec as P
-
-    A, b, _ = problem
-    Ag = distribute_csr(A, NP, wjd=True)
-    assert Ag.int_wjd is not None
-    x = rng.standard_normal(A.shape[0])
-    xp = distribute_vector(x, NP, Ag.n_local)
-    mesh = make_mesh(NP)
-    fn = jax.shard_map(
-        lambda Ash, xs: shard_spmv(Ash, xs[0], "p")[None],
-        mesh=mesh,
-        in_specs=(jax.tree.map(lambda _: P("p"), Ag), P("p")),
-        out_specs=P("p"),
-        check_vma=False,      # pallas out_shapes carry no vma info
-    )
-    y = np.asarray(gather_vector(fn(Ag, xp), Ag.n_global))
-    np.testing.assert_allclose(y, np.asarray(rt.spmv(A, x)), rtol=1e-12)
-
-
-def test_dist_wjd_cg_f32(problem):
-    """Distributed CG with the f32 WJD interior kernel converges with
-    iteration parity vs the XLA path."""
-    A, b, x_true = problem
-    A32 = rt.convert(A, "CSR")
-    d, i, p = A32.numpy_triplet()
-    A32 = rt.CSR.from_arrays(d.astype(np.float32), i, p, A32.shape)
-    b32 = b.astype(np.float32)
-    Ag_w = distribute_csr(A32, NP, wjd=True)
-    Ag_x = distribute_csr(A32, NP, wjd=False)
-    xw, iw = dist_solve(cg, Ag_w, b32, rel_tol=1e-5, max_iter=500)
-    xx, ix = dist_solve(cg, Ag_x, b32, rel_tol=1e-5, max_iter=500)
-    assert int(iw.status) in (1, 2)
-    assert abs(int(iw.iterations) - int(ix.iterations)) <= 2
-    assert np.linalg.norm(np.asarray(xw) - x_true) < 1e-2
-
-
 @pytest.mark.parametrize("kind,solver_name", [
     ("spai", "cg"), ("fsai", "cg"), ("ilu0", "fgmres"), ("ilut", "fgmres"),
 ])
@@ -233,3 +193,84 @@ def test_block_jacobi_local_precond(kind, solver_name):
     err = np.linalg.norm(np.asarray(x) - 1.0)
     assert err < 1e-5, (kind, err)
     assert int(info.iterations) <= int(i0.iterations), (kind,)
+
+
+def _spread(tree):
+    """The fewest distinct devices that any array leaf of `tree` sits on."""
+    return min(len({s.device for s in leaf.addressable_shards})
+               for leaf in jax.tree.leaves(tree))
+
+
+def _build(name, A):
+    from rocalution_tpu.parallel import (block_jacobi_precond,
+                                         distributed_amg_setup)
+
+    Ag = distribute_csr(A, NP)
+    if name == "distribute_csr":
+        return Ag
+    if name == "block_jacobi_diag":
+        return block_jacobi_diag(Ag)
+    if name == "block_jacobi_precond":
+        return block_jacobi_precond(Ag, "ilu0").arrays
+    if name == "distribute_vector":
+        return distribute_vector(np.ones(A.shape[0]), NP, Ag.n_local)
+    coo = [m.tocoo() for m in Ag._block_cache[0]]
+    blocks = [(c.row, c.col, c.data) for c in coo]
+    return distributed_amg_setup(blocks, A.shape, coarse_size=40)
+
+
+@pytest.mark.parametrize("name", [
+    "distribute_csr", "block_jacobi_diag", "block_jacobi_precond",
+    "distribute_vector", "distributed_amg_setup"])
+def test_constructors_place_part_p_on_device_p(problem, name):
+    """Every stacked (P, ...) array leaves its constructor with part p on
+    the p-th device of make_mesh(P), not gathered on the default device."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    A, _, _ = problem
+    tree = _build(name, A)
+    want = NamedSharding(make_mesh(NP), P("p"))
+    assert _spread(tree) == NP
+    for leaf in jax.tree.leaves(tree):
+        assert leaf.sharding.is_equivalent_to(want, leaf.ndim), name
+
+
+@pytest.mark.parametrize("where", ["one_device", "other_devices"])
+def test_dist_solve_places_operands_on_its_mesh(problem, where):
+    """Operands committed elsewhere (all on one device, or on the mesh of
+    other devices) are moved onto the solve's mesh; the iterate comes back
+    spread over that mesh."""
+    A, b, x_true = problem
+    Ag = distribute_csr(A, NP)
+    M = block_jacobi_diag(Ag)
+    if where == "one_device":
+        Ag, M = jax.device_put((Ag, M), jax.devices()[0])
+    mesh = make_mesh(NP, jax.devices()[-NP:])
+    x, info = dist_solve(cg, Ag, b, M=M, mesh=mesh, rel_tol=1e-10,
+                         max_iter=500)
+    assert int(info.status) in (1, 2)
+    assert np.linalg.norm(np.asarray(x) - x_true) < 1e-6
+    assert {s.device for s in x.addressable_shards} == set(
+        mesh.devices.flat)
+
+
+def test_dist_amg_sharded_places_hierarchy_on_its_mesh(problem):
+    from rocalution_tpu.parallel import dist_amg_solve_sharded
+
+    A, b, x_true = problem
+    dl = _build("distributed_amg_setup", A)
+    mesh = make_mesh(NP, jax.devices()[-NP:])
+    x, info = dist_amg_solve_sharded(cg, dl, b, mesh=mesh, rel_tol=1e-10,
+                                     max_iter=200)
+    assert int(info.status) in (1, 2)
+    assert np.linalg.norm(np.asarray(x) - x_true) < 1e-6
+    assert {s.device for s in x.addressable_shards} == set(
+        mesh.devices.flat)
+
+
+def test_shard_stacked_keeps_placed_arrays(problem):
+    from rocalution_tpu.parallel.partition import shard_stacked
+
+    A, _, _ = problem
+    Ag = distribute_csr(A, NP)
+    assert shard_stacked(Ag.int_data, make_mesh(NP)) is Ag.int_data

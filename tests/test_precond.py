@@ -220,39 +220,29 @@ def test_extract_lu_roundtrip(A16):
 
 
 def test_itilu0_inside_jit_no_tracer_leak(rng):
-    """Regression (r3, seen on hardware): with WJD auto-attach active, an
-    ILU-jacobi apply traced inside a jitted solver built its off-diagonal
-    WJD cache DURING tracing, caching tracer arrays on the factor object and
-    failing the second call with UnexpectedTracerError. The build must
-    prepare the caches eagerly (prepare_offd) and never attach under trace."""
+    """An ILU-jacobi apply traced inside a jitted solver must not cache
+    arrays built during tracing on the factor object (the second call
+    would fail with UnexpectedTracerError). The build prepares the
+    off-diagonal operands eagerly (prepare_offd), outside any trace."""
     import jax
     import jax.numpy as jnp
 
-    from rocalution_tpu.config import set_auto_wjd
-
     A = rt.laplacian_2d(12)
     b = rng.standard_normal(A.shape[0])
-    set_auto_wjd(True)        # simulate the TPU default on CPU
-    try:
-        M = rt.precond.itilu0(A, sweeps=6)
-        # factors got their analysis at build time, outside any trace
-        from rocalution_tpu.ops.spmv import trace_state_clean
-        assert trace_state_clean()
+    M = rt.precond.itilu0(A, sweeps=6)
 
-        @jax.jit
-        def solve(b):
-            x, info = rt.gmres(A, jnp.asarray(b), M=M, rel_tol=1e-8,
-                               max_iter=300)
-            return x, info.iterations
+    @jax.jit
+    def solve(b):
+        x, info = rt.gmres(A, jnp.asarray(b), M=M, rel_tol=1e-8,
+                           max_iter=300)
+        return x, info.iterations
 
-        x1, _ = solve(b)
-        x2, _ = solve(b)      # second call must not see leaked tracers
-        np.testing.assert_allclose(np.asarray(x1), np.asarray(x2))
-        err = np.linalg.norm(
-            np.asarray(rt.spmv(A, jnp.asarray(np.asarray(x1)))) - b)
-        assert err < 1e-6 * np.linalg.norm(b)
-    finally:
-        set_auto_wjd(None)
+    x1, _ = solve(b)
+    x2, _ = solve(b)      # second call must not see leaked tracers
+    np.testing.assert_allclose(np.asarray(x1), np.asarray(x2))
+    err = np.linalg.norm(
+        np.asarray(rt.spmv(A, jnp.asarray(np.asarray(x1)))) - b)
+    assert err < 1e-6 * np.linalg.norm(b)
 
 
 def test_bsr_native_factorizations(rng):
